@@ -1,0 +1,105 @@
+"""The port's eager tracer against raytpu.trace and the in-repo golden.
+
+raytpu.trace is jitted: XLA:CPU contracts multiply-adds into FMAs (for
+example jnp.sum(v * v, -1) is fma(z, z, fma(y, y, x * x))) and its rsqrt is
+not correctly rounded, while the port rounds every op on its own.  Those
+ulp differences flip self-shadow tests at grazing light (the t ~ 1e-5 root
+of the sphere a point lies on) and the branches below them, so a named
+number of pixels differ; every other pixel is held at rtol 1e-5, and the
+whole frame under the forward contract of tests/test_pallas.py:19-27.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import raytpu.config as jconfig
+import raytpu.scene as jscene
+import raytpu.trace as jtrace
+import raytpu_torch.config as tconfig
+import raytpu_torch.scene as tscene
+import raytpu_torch.trace as ttrace
+from raytpu_torch.image import read_ppm, tone_map
+
+torch.set_num_threads(2)
+
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+
+
+def assert_matches(img, ref, max_bad_pixels):
+    """At most `max_bad_pixels` pixels off rtol 1e-5 / atol 1e-10; all
+    pixels under the forward contract (outliers at 1e-2*scale <= 1%, mean
+    abs diff < 1e-3*scale).  Returns the mask of the pixels that differ."""
+    assert img.shape == ref.shape and np.isfinite(img).all()
+    bad = ~np.isclose(img, ref, rtol=1e-5, atol=1e-10).all(axis=-1)
+    assert bad.sum() <= max_bad_pixels, f"{bad.sum()} pixels off rtol 1e-5"
+    scale = max(float(np.abs(ref).max()), 1e-12)
+    d = np.abs(img - ref)
+    assert (d.max(axis=-1) > 1e-2 * scale).mean() <= 0.01
+    assert d.mean() < 1e-3 * scale
+    return bad
+
+
+# (depth, alias) -> pixels of the 2048 that differ at rtol 1e-5: 12, 14, 31
+# and 59 measured on x86-64 with XLA:CPU's FMA contraction; bounds +25%.
+CASES = {(0, 1): 15, (1, 1): 18, (3, 1): 39, (1, 3): 74}
+
+
+@pytest.mark.parametrize("depth,alias", sorted(CASES))
+def test_render_image_matches_raytpu(depth, alias):
+    kw = dict(width=64, height=32, max_depth=depth, alias_factor=alias)
+    img = ttrace.render_image(tscene.default_scene(), tconfig.RenderConfig(**kw))
+    ref = np.asarray(jtrace.render_image(jscene.default_scene(),
+                                         jconfig.RenderConfig(**kw)))
+    assert img.dtype == torch.float32
+    assert_matches(img.numpy(), ref, CASES[(depth, alias)])
+
+
+def test_golden_linear_and_ppm():
+    """tests/goldens/default_160x120_d4 (written by raytpu.trace): 741 of
+    19200 pixels differ at rtol 1e-5 (measured, bound 800); every other
+    pixel holds rtol 1e-5 and its PPM bytes match the golden exactly."""
+    cfg = tconfig.RenderConfig(width=160, height=120, max_depth=4, alias_factor=3)
+    img = ttrace.render_image(tscene.default_scene(), cfg).numpy()
+    ref = np.load(os.path.join(GOLDEN_DIR, "default_160x120_d4_linear.npy"))
+    bad = assert_matches(img, ref, 800)
+    ppm = read_ppm(os.path.join(GOLDEN_DIR, "default_160x120_d4.ppm"))
+    mapped = tone_map(img)
+    np.testing.assert_array_equal(mapped[~bad], ppm[~bad])
+
+
+@pytest.mark.parametrize("alias", [1, 3])
+def test_camera_rays_match_raytpu(alias):
+    """Unit camera directions, up to jax.lax.rsqrt's rounding (<= 2 ulp)."""
+    jc = jconfig.RenderConfig(width=48, height=20, alias_factor=alias)
+    tc = tconfig.RenderConfig(width=48, height=20, alias_factor=alias)
+    for i in range(alias):
+        for j in range(alias):
+            np.testing.assert_allclose(
+                ttrace.camera_rays(tc, i, j).numpy(),
+                np.asarray(jtrace.camera_rays(jc, i, j)), rtol=0, atol=3e-7)
+
+
+def test_chunking_does_not_change_values():
+    scene = tscene.default_scene()
+    cfg = tconfig.RenderConfig(width=40, height=10, max_depth=2, alias_factor=2)
+    whole = ttrace.render_image(scene, cfg)
+    gid = torch.arange(cfg.num_pixels)
+    small = ttrace.render_pixels(scene, tconfig.RenderConfig(
+        width=40, height=10, max_depth=2, alias_factor=2, chunk_pixels=37), gid)
+    torch.testing.assert_close(small.reshape(10, 40, 3), whole, rtol=0, atol=0)
+    assert ttrace.render_pixels(scene, cfg, gid[:0]).shape == (0, 3)
+
+
+def test_trace_rays_sums_levels():
+    """trace_rays is the per-ray tree sum: a ray that misses everything
+    paints the background at every depth; one into a sphere shades."""
+    scene = tscene.default_scene(bg_opacity=0.0)
+    scene.bg.matte = torch.tensor([0.1, 0.2, 0.3])
+    d = torch.tensor([[0.0, 1.0, 0.0], [-0.55, 0.0, -0.83]])
+    d = d / d.norm(dim=-1, keepdim=True)
+    out = ttrace.trace_rays(scene, torch.zeros(1, 3), d, torch.ones_like(d), 3)
+    torch.testing.assert_close(out[0], torch.tensor([0.1, 0.2, 0.3]))
+    assert (out[1] > 0).all() and not torch.equal(out[1], out[0])
