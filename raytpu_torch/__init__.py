@@ -10,20 +10,28 @@ Public surface:
     raytpu_torch.scene_io   JSON scene files (raytpu's schema)
     raytpu_torch.image      tone mapping + PPM I/O (golden-image contract)
     raytpu_torch.trace      eager bounce-tree tracer + camera model
-    raytpu_torch.kernels    the CUDA forward kernel and its plain version
+    raytpu_torch.kernels    the CUDA forward and backward kernels, their plain
+                            versions and the autograd Function pairing them
     raytpu_torch.render     backend choice, one-device render, CUDA-event timing
+    raytpu_torch.grad       losses, scene gradient, fit, finite differences
+    raytpu_torch.utils      CUDA-event timer, fit checkpoints
     raytpu_torch.cli        command-line driver
+    raytpu_torch.examples   runnable examples (fit_scene)
 """
 
 from raytpu_torch.config import BENCH_CONFIGS, RenderConfig
+from raytpu_torch.grad import (exposure_image_loss, finite_difference_check,
+                               fit_scene, image_loss, loss_and_grad)
 from raytpu_torch.image import max_colour_value, read_ppm, tone_map, write_ppm
 from raytpu_torch.render import render_single, render_timed, resolve_backend
 from raytpu_torch.scene import (Lights, Medium, Scene, Spheres, build_scene,
                                 default_scene, make_material, random_scene,
-                                scene_from_numpy, scene_to_numpy,
+                                scene_from_leaves, scene_from_numpy,
+                                scene_leaves, scene_to_numpy,
                                 single_sphere_scene)
 from raytpu_torch.scene_io import load_scene, save_scene
 from raytpu_torch.trace import camera_rays, render_image, render_pixels, trace_rays
+from raytpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 __version__ = "0.1.0"
 
@@ -32,9 +40,12 @@ __all__ = [
     "Scene", "Spheres", "Lights", "Medium",
     "build_scene", "default_scene", "make_material", "random_scene",
     "single_sphere_scene", "scene_from_numpy", "scene_to_numpy",
+    "scene_leaves", "scene_from_leaves",
     "load_scene", "save_scene",
     "render_image", "render_pixels", "trace_rays", "camera_rays",
     "render_single", "render_timed", "resolve_backend",
     "tone_map", "write_ppm", "read_ppm", "max_colour_value",
+    "image_loss", "exposure_image_loss", "loss_and_grad", "fit_scene",
+    "finite_difference_check", "save_checkpoint", "load_checkpoint",
     "__version__",
 ]

@@ -7,8 +7,9 @@ Examples:
   python -m raytpu_torch.cli --compare a.ppm b.ppm
   python -m raytpu_torch.cli --list-devices
 
-The scene lives on the first CUDA device when there is one, else on the
-CPU; --backend auto then picks the CUDA kernel or the eager tracer.
+The scene lives on the first CUDA device, or on the CPU with --cpu;
+without --cpu and without a CUDA device the CLI exits 2.  --backend auto
+then picks the CUDA kernel or the eager tracer.
 """
 
 from __future__ import annotations
@@ -66,6 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="compute path: the CUDA kernel or the eager tracer "
                         "(auto: cuda on a CUDA device, torch on the CPU)")
+    p.add_argument("--cpu", action="store_true",
+                   help="render on the CPU (default: the first CUDA device)")
     p.add_argument("--list-devices", action="store_true")
     p.add_argument("--compare", nargs=2, metavar=("A.ppm", "B.ppm"),
                    default=None,
@@ -100,10 +103,6 @@ def compare_ppms(path_a: str, path_b: str) -> dict:
         "mismatching_pixels": int((diff.reshape(-1, 3).max(axis=1) > 0).sum()),
         "total_pixels": int(a.shape[0] * a.shape[1]),
     }
-
-
-def default_device() -> torch.device:
-    return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
 
 
 def make_scene(args, device):
@@ -148,10 +147,14 @@ def main(argv=None) -> int:
         print(describe_devices())
         return 0
 
+    if not args.cpu and not torch.cuda.is_available():
+        print("error: no CUDA device found; pass --cpu to render on the CPU",
+              file=sys.stderr)
+        return 2
     cfg = RenderConfig(width=args.width, height=args.height, zoom=args.zoom,
                        alias_factor=args.alias_factor, max_depth=args.max_depth,
                        chunk_pixels=args.chunk_pixels)
-    scene = make_scene(args, default_device())
+    scene = make_scene(args, torch.device("cpu" if args.cpu else "cuda:0"))
     if args.save_scene:
         from raytpu_torch.scene_io import save_scene
         save_scene(scene, args.save_scene)

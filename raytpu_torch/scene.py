@@ -191,24 +191,38 @@ def random_scene(num_spheres: int, num_lights: int = 4, seed: int = 0,
 _LEAVES = {"spheres": ("pos", "radius", "matte", "gloss", "opacity", "ior"),
            "lights": ("pos", "col"),
            "bg": ("matte", "ior", "opacity")}
+# "spheres.pos", ..., "bg.opacity", in scene_leaves order.
+LEAF_NAMES = tuple(f"{group}.{name}" for group, names in _LEAVES.items()
+                   for name in names)
+
+
+def scene_leaves(scene: Scene) -> tuple:
+    """The scene's 11 tensors in the order of JAX's tree_leaves of a
+    raytpu Scene: spheres pos, radius, matte, gloss, opacity, ior; lights
+    pos, col; bg matte, ior, opacity."""
+    return tuple(getattr(getattr(scene, group), name)
+                 for group, names in _LEAVES.items() for name in names)
+
+
+def scene_from_leaves(leaves) -> Scene:
+    """The inverse of scene_leaves (the tensors are used as they are)."""
+    it = iter(leaves)
+    classes = {"spheres": Spheres, "lights": Lights, "bg": Medium}
+    return Scene(**{group: classes[group](**{n: next(it) for n in names})
+                    for group, names in _LEAVES.items()})
 
 
 def scene_to_numpy(scene: Scene) -> dict:
     """The scene's leaves as float32 numpy arrays keyed "spheres.pos", ...,
     "bg.opacity" — the inverse of scene_from_numpy."""
-    return {f"{group}.{name}": getattr(getattr(scene, group), name)
-            .detach().cpu().numpy()
-            for group, names in _LEAVES.items() for name in names}
+    return {key: t.detach().cpu().numpy()
+            for key, t in zip(LEAF_NAMES, scene_leaves(scene))}
 
 
 def scene_from_numpy(d: dict, device="cpu") -> Scene:
     """Build the port's Scene on `device` from a dict of numpy leaves keyed
     "spheres.pos", ..., "bg.opacity" (for example raytpu's Scene pytree
     leaves converted with np.asarray) — the port's scene conversion."""
-    def leaf(key):
-        return torch.tensor(np.asarray(d[key], np.float32), device=device)
-
-    classes = {"spheres": Spheres, "lights": Lights, "bg": Medium}
-    parts = {group: classes[group](**{n: leaf(f"{group}.{n}") for n in names})
-             for group, names in _LEAVES.items()}
-    return Scene(**parts)
+    return scene_from_leaves(
+        torch.tensor(np.asarray(d[key], np.float32), device=device)
+        for key in LEAF_NAMES)
