@@ -4,12 +4,17 @@ Examples:
   python -m raytpu_torch.cli -o out.ppm                # golden 800x600 d5 render
   python -m raytpu_torch.cli --width 640 --height 480 --max-depth 4 --time
   python -m raytpu_torch.cli --scene random --num-spheres 256 -o big.ppm
+  python -m raytpu_torch.cli --scene random --num-spheres 256 --seed 3 \
+      --width 1920 --height 1080 --max-depth 6 --backend wavefront \
+      --strict-drops -o config5.ppm           # BASELINE config 5
   python -m raytpu_torch.cli --compare a.ppm b.ppm
   python -m raytpu_torch.cli --list-devices
 
 The scene lives on the first CUDA device, or on the CPU with --cpu;
 without --cpu and without a CUDA device the CLI exits 2.  --backend auto
-then picks the CUDA kernel or the eager tracer.
+then picks the CUDA kernel (or the wavefront past the measured crossover)
+or the eager tracer.  A wavefront render that drops live rays warns, or
+under --strict-drops exits 3.
 """
 
 from __future__ import annotations
@@ -30,11 +35,8 @@ _NOT_PORTED = {
     "interleave": "--interleave: the sharded driver is ROADMAP Queue 1 item 7",
     "oracle": "--oracle: the strict numpy oracle stays in raytpu (ROADMAP "
               "Queue 1, 'Not to port'); run python -m raytpu.cli --oracle",
-    "chunk_rays": "--chunk-rays: the wavefront tracer is ROADMAP Queue 1 item 5",
-    "capacity_factor": "--capacity-factor: the wavefront tracer is ROADMAP "
-                       "Queue 1 item 5",
-    "streams": "--streams: the wavefront tracer is ROADMAP Queue 1 item 5",
-    "strict_drops": "--strict-drops: the wavefront tracer is ROADMAP Queue 1 item 5",
+    "streams": "--streams: measured neutral on the TPU, not ported (ROADMAP "
+               "Queue 1, 'Not to port')",
 }
 
 
@@ -63,10 +65,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--output", default=None, help="output PPM path")
     p.add_argument("--time", action="store_true", dest="timeit",
                    help="print timing and Mrays/s as JSON (CUDA device only)")
-    p.add_argument("--backend", choices=["auto", "torch", "cuda"],
+    p.add_argument("--backend", choices=["auto", "torch", "cuda", "wavefront"],
                    default="auto",
-                   help="compute path: the CUDA kernel or the eager tracer "
-                        "(auto: cuda on a CUDA device, torch on the CPU)")
+                   help="compute path: the dense CUDA kernel, the wavefront "
+                        "tracer or the eager tracer (auto: cuda or the "
+                        "wavefront on a CUDA device, torch on the CPU)")
+    p.add_argument("--chunk-rays", type=int, default=None,
+                   help="wavefront: camera rays per chunk (default: the "
+                        "auto ladder's)")
+    p.add_argument("--capacity-factor", type=float, default=None,
+                   help="wavefront: per-level live-ray capacity as a "
+                        "multiple of the chunk.  Default: the auto ladder, "
+                        "escalating and re-rendering on any drop; an "
+                        "explicit value is one attempt, and the live rays "
+                        "past it are dropped, counted and reported")
+    p.add_argument("--strict-drops", action="store_true",
+                   help="exit 3 if the wavefront drops any live ray, "
+                        "instead of warning")
     p.add_argument("--cpu", action="store_true",
                    help="render on the CPU (default: the first CUDA device)")
     p.add_argument("--list-devices", action="store_true")
@@ -75,11 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="compare two PPM images and print diff stats as "
                         "JSON; all other options are ignored")
     # Accepted so that raytpu's command lines fail with a clear message.
-    for flag in ("--sharded", "--interleave", "--oracle", "--strict-drops"):
+    for flag in ("--sharded", "--interleave", "--oracle"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-    for flag, kind in (("--chunk-rays", int), ("--capacity-factor", float),
-                       ("--streams", int)):
-        p.add_argument(flag, type=kind, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--streams", type=int, default=None, help=argparse.SUPPRESS)
     return p
 
 
@@ -160,16 +173,26 @@ def main(argv=None) -> int:
         save_scene(scene, args.save_scene)
         print(f"wrote {args.save_scene}")
 
-    from raytpu_torch.render import render_single, render_timed
-    if args.timeit:
-        if scene.device.type != "cuda":
-            print("error: --time measures on a CUDA device; none is available",
-                  file=sys.stderr)
-            return 2
-        img, stats = render_timed(scene, cfg, backend=args.backend)
-        print(json.dumps({k: v for k, v in stats.items() if k != "times"}))
-    else:
-        img = render_single(scene, cfg, backend=args.backend)
+    from raytpu_torch.render import DroppedRaysError, render_single, render_timed
+    wf_opts = {k: v for k, v in (("chunk_rays", args.chunk_rays),
+                                 ("capacity_factor", args.capacity_factor))
+               if v is not None}
+    on_drop = "raise" if args.strict_drops else "warn"
+    try:
+        if args.timeit:
+            if scene.device.type != "cuda":
+                print("error: --time measures on a CUDA device; none is "
+                      "available", file=sys.stderr)
+                return 2
+            img, stats = render_timed(scene, cfg, backend=args.backend,
+                                      wf_opts=wf_opts, on_drop=on_drop)
+            print(json.dumps({k: v for k, v in stats.items() if k != "times"}))
+        else:
+            img = render_single(scene, cfg, backend=args.backend,
+                                wf_opts=wf_opts, on_drop=on_drop)
+    except DroppedRaysError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 3
 
     if args.output:
         from raytpu_torch.image import write_ppm

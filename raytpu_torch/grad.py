@@ -29,6 +29,10 @@ from raytpu_torch.trace import render_pixels
 
 def _render_ad(scene, cfg: RenderConfig, gid, backend: str):
     """Differentiable render of the pixel ids `gid` (None: the whole frame)."""
+    if backend == "wavefront":
+        raise NotImplementedError(
+            "the differentiable wavefront tracer is not ported yet (ROADMAP "
+            "Queue 1 item 6)")
     if resolve_backend(backend, scene.device) == "cuda":
         if gid is not None:
             raise ValueError("the kernel pair renders the whole frame; pass "

@@ -12,6 +12,16 @@ from raytpu_torch.kernels.trace_cuda import (
     render_pixels_cuda_ad,
     render_pixels_torch,
 )
+from raytpu_torch.kernels.wavefront import (
+    WF_COMPACT,
+    WF_LEVEL,
+    compact,
+    compact_torch,
+    render_image_wavefront,
+    render_pixels_wavefront,
+    wf_level,
+    wf_level_torch,
+)
 
 __all__ = [
     "TRACE_BWD",
@@ -23,4 +33,12 @@ __all__ = [
     "render_pixels_cuda",
     "render_pixels_cuda_ad",
     "render_pixels_torch",
+    "WF_COMPACT",
+    "WF_LEVEL",
+    "compact",
+    "compact_torch",
+    "render_image_wavefront",
+    "render_pixels_wavefront",
+    "wf_level",
+    "wf_level_torch",
 ]

@@ -64,20 +64,24 @@ def _sources(path: Path) -> list[Path]:
 
 
 class CudaKernel:
-    """One CUDA source file built into a shared library with a plain C
-    entry point, and the count of its launches.
+    """One CUDA source file built into a shared library with plain C entry
+    points, and the count of its launches.
 
+    `symbol` and `argtypes` name the main entry point; `entries` maps the
+    names of any others in the same library to their argtypes.
     `launches` is a plain integer that the wrapper adds one to where it
-    launches the kernel, and nowhere else; a caller may reset it."""
+    launches a kernel, and nowhere else; a caller may reset it."""
 
-    def __init__(self, name: str, source: str, symbol: str, argtypes):
+    def __init__(self, name: str, source: str, symbol: str, argtypes,
+                 entries: dict | None = None):
         self.name = name
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = argtypes
+        self.entries = {symbol: argtypes, **(entries or {})}
         self.launches = 0
         self.build_log = ""
-        self._fn = None
+        self._lib = None
 
     def library_path(self) -> Path:
         h = hashlib.sha256()
@@ -111,16 +115,18 @@ class CudaKernel:
         os.replace(tmp, path)
         return seconds
 
-    def function(self):
-        """The bound C entry point, building the library first if needed."""
-        if self._fn is None:
+    def function(self, symbol: str | None = None):
+        """The bound C entry point `symbol` (default: the main one),
+        building and loading the library first if needed."""
+        if self._lib is None:
             self.build()
             lib = ctypes.CDLL(str(self.library_path()))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            for name, argtypes in self.entries.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            self._lib = lib
+        return getattr(self._lib, symbol or self.symbol)
 
 
 _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float

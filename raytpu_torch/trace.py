@@ -84,9 +84,15 @@ def _gather_medium(spheres, bg, index):
 
 
 def _trace_level(scene, origin, direction, intensity, med_matte, med_ior,
-                 med_opacity, spawn: bool):
+                 med_opacity, spawn: bool, medium_idx=None):
     """One bounce level: emissions for every ray in the batch, plus (if
     `spawn`) the refraction and reflection children, concatenated (2B rays).
+
+    With `medium_idx` (the parents' medium as a sphere index, -1 for the
+    background: the wavefront's compressed state), the children carry
+    (origin, direction, intensity, medium index) instead of the three
+    medium value fields: the refraction child the target's index, the
+    reflection child its parent's.
 
     Emission (rayTrace stage 0, raytracer.h:454-550):
       miss  -> intensity * medium.matte, whatever the intensity's size
@@ -135,6 +141,11 @@ def _trace_level(scene, origin, direction, intensity, med_matte, med_ior,
     g_origin, g_dir = reflect(direction, hit.normal, hit.point)
     g_intensity = torch.where(refl_gate[..., None], refl_col, zero)
 
+    if medium_idx is not None:
+        return emission, (torch.cat([r_origin, g_origin]),
+                          torch.cat([r_dir, g_dir]),
+                          torch.cat([r_intensity, g_intensity]),
+                          torch.cat([target_idx.to(medium_idx.dtype), medium_idx]))
     children = (
         torch.cat([r_origin, g_origin]),
         torch.cat([r_dir, g_dir]),

@@ -70,8 +70,9 @@ def test_scene_file_round_trip_and_flags(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--sharded"], ["--interleave"], ["--oracle"], ["--strict-drops"],
-    ["--chunk-rays", "1024"], ["--capacity-factor", "2.0"], ["--streams", "2"],
+    ["--sharded"], ["--interleave"], ["--oracle"], ["--sharded", "--strict-drops"],
+    ["--interleave", "--chunk-rays", "1024"], ["--oracle", "--capacity-factor", "2.0"],
+    ["--streams", "2"],
 ])
 def test_unported_flags_name_the_roadmap(flags, capsys):
     assert tcli.main(flags) == 2

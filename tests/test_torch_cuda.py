@@ -1,5 +1,5 @@
-"""The CUDA forward and backward kernels against their plain PyTorch
-versions, on a card.
+"""The CUDA kernels (dense forward and backward, the wavefront's level and
+compaction) against their plain PyTorch versions, on a card.
 
 This file imports torch and the port only, so it runs where jax is absent;
 tests/conftest.py imports jax, so on such a machine run it as
@@ -15,6 +15,7 @@ near-singular gradient).
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -22,7 +23,7 @@ import torch
 
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.grad import loss_and_grad
-from raytpu_torch.kernels import trace_cuda
+from raytpu_torch.kernels import trace_cuda, wavefront
 from raytpu_torch.kernels.trace_cuda import (grad_pixels_cuda, grad_pixels_torch,
                                              render_pixels_cuda,
                                              render_pixels_cuda_ad,
@@ -156,3 +157,80 @@ def test_backward_raises_on_what_it_does_not_take(dev):
         scene.spheres, radius=scene.spheres.radius.double()))
     with pytest.raises(TypeError):
         grad_pixels_cuda(doubled, cfg, g)
+
+
+def _level_states(scene, dev):
+    """Camera rays of a 64x32 frame at alias 2 and their first compacted
+    level, for the wavefront kernels."""
+    cfg = RenderConfig(width=64, height=32, max_depth=2, alias_factor=2)
+    chunk, ws, cap, n = wavefront.wavefront_sizes(cfg, 4096, 2)
+    return cfg, ws, cap, wavefront.chunk_camera_state(cfg, chunk, n, 0,
+                                                     cfg.num_pixels, device=dev)
+
+
+@pytest.mark.parametrize("name", ["default", "random32"])
+def test_wavefront_kernels_match_plain_versions(dev, name):
+    scene = (default_scene(device=dev) if name == "default"
+             else random_scene(32, seed=3, device=dev))
+    _, ws, cap, (state, pid) = _level_states(scene, dev)
+    for _ in range(2):
+        before = wavefront.WF_LEVEL.launches
+        em, kids = wavefront.wf_level(scene, state, True)
+        torch.cuda.synchronize()
+        assert wavefront.WF_LEVEL.launches == before + 1
+        pem, pkids = wavefront.wf_level_torch(scene, state, True)
+        contract(em.T, pem.T)
+        off = ~torch.isclose(kids, pkids, rtol=1e-5, atol=1e-6).all(dim=0)
+        assert off.float().mean() <= 0.01
+        for keep in (min(2 * state.shape[1], cap), 100):
+            before = wavefront.WF_COMPACT.launches
+            got = wavefront.compact(kids, pid, keep, ws)
+            torch.cuda.synchronize()
+            assert wavefront.WF_COMPACT.launches == before + 2
+            want = wavefront.compact_torch(kids, pid, keep, ws)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        state, pid = wavefront.compact(kids, pid, min(2 * state.shape[1], cap), ws)[:2]
+
+
+def test_wavefront_kernels_raise_on_what_they_do_not_take(dev):
+    scene = default_scene(device=dev)
+    cfg, ws, cap, (state, pid) = _level_states(scene, dev)
+    with pytest.raises(ValueError):   # state on the CPU, scene on the card
+        wavefront.wf_level(scene, state.cpu(), True)
+    with pytest.raises(TypeError):
+        wavefront.wf_level(scene, state.double(), True)
+    _, kids = wavefront.wf_level(scene, state, True)
+    with pytest.raises(TypeError):    # pids on the CPU, children on the card
+        wavefront.compact(kids, pid.cpu(), cap, ws)
+    with pytest.raises(ValueError):
+        wavefront.render_pixels_wavefront(
+            scene, RenderConfig(width=8, height=8, max_depth=trace_cuda.MAX_DEPTH + 1))
+
+
+def test_render_single_wavefront_launches_both_kernels(dev):
+    scene = default_scene(device=dev)
+    cfg = RenderConfig(width=64, height=48, max_depth=3, alias_factor=2)
+    l3, l5 = wavefront.WF_LEVEL.launches, wavefront.WF_COMPACT.launches
+    img, info = render_single(scene, cfg, backend="wavefront",
+                              wf_opts=dict(chunk_rays=4096, capacity_factor=2),
+                              return_info=True)
+    chunks = wavefront.wavefront_sizes(cfg, 4096, 2)[3]
+    assert wavefront.WF_LEVEL.launches == l3 + chunks * 4
+    assert wavefront.WF_COMPACT.launches == l5 + chunks * 3 * 2
+    assert info["dropped"] == 0 and img.device.type == "cuda"
+    dense = render_pixels_cuda(scene, cfg).reshape(48, 64, 3).cpu().numpy()
+    got = img.cpu().numpy()
+    scale = float(np.abs(dense).max())
+    d = np.abs(got - dense)
+    assert (d.max(axis=-1) > 1e-3 * scale).mean() <= 0.005
+    assert d.mean() < 1e-4 * scale
+
+
+def test_cli_time_json_has_dropped(dev, capsys):
+    from raytpu_torch import cli
+
+    assert cli.main(["--width", "64", "--height", "48", "--max-depth", "2",
+                     "--alias-factor", "1", "--backend", "wavefront",
+                     "--time"]) == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["dropped"] == 0 and stats["backend"] == "wavefront"

@@ -251,6 +251,8 @@ def test_unported_training_paths_name_the_roadmap():
     for fn in (tgrad.loss_and_grad_wavefront, tgrad.loss_and_grad_sharded):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(ts, cfg, target)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tgrad.loss_and_grad(ts, cfg, target, backend="wavefront")
     with pytest.raises(ValueError):
         tgrad.loss_and_grad(ts, cfg, target, backend="cuda")  # CPU scene
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -17,6 +17,7 @@ import raytpu.scene as jscene
 from raytpu.kernels.trace_pallas import (_scene_tables, render_image_pallas,
                                          render_pixels_pallas)
 import raytpu_torch.config as tconfig
+import raytpu_torch.render as trender
 import raytpu_torch.scene as tscene
 from raytpu_torch.kernels import trace_cuda
 from raytpu_torch.kernels.trace_cuda import (render_image_cuda,
@@ -113,8 +114,20 @@ def test_backend_resolution():
         resolve_backend("cuda", "cpu")
     with pytest.raises(ValueError):
         resolve_backend("pallas", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_backend("wavefront", "cpu")
+    assert resolve_backend("wavefront", "cpu") == "wavefront"
+    # "auto" on a card: the dense kernel unless the scene and config pass
+    # the measured crossover (the device is only inspected, not used); the
+    # cells measured at its two ends stay on their sides.
+    deep = tconfig.RenderConfig(width=8, height=8, max_depth=6, alias_factor=1)
+    big = tscene.random_scene(256, seed=3)
+    assert resolve_backend("auto", "cuda") == "cuda"
+    assert resolve_backend("auto", "cuda", big, deep) == "wavefront"
+    assert resolve_backend("auto", "cuda", tscene.default_scene(), deep) == "cuda"
+    for n, depth in ((16, 6), (64, 2), (64, 4), (128, 2)):
+        cfg = tconfig.RenderConfig(width=8, height=8, max_depth=depth)
+        want = "wavefront" if trender._wf_wins(n, depth) else "cuda"
+        assert resolve_backend("auto", "cuda", tscene.random_scene(n), cfg) == want
+    assert resolve_backend("auto", "cpu", big, deep) == "torch"
     scene = tscene.single_sphere_scene()
     cfg = tconfig.RenderConfig(width=8, height=4, max_depth=0, alias_factor=1)
     with pytest.raises(ValueError):
