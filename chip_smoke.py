@@ -8,9 +8,9 @@ Run from the repository root with no arguments:
 Phases, each of which must pass (any failure exits non-zero before the
 result lines):
   1. a CUDA device is present; print its nvidia-smi name and power limit;
-  2. build every kernel (trace_fwd, trace_bwd, wf_level, wf_compact) from
-     raytpu_torch/csrc, one nvcc each, all started together; print their
-     ptxas resources;
+  2. build every kernel (trace_fwd, trace_bwd, wf_level, wf_compact,
+     wf_level_bwd, wf_uncompact) from raytpu_torch/csrc, one nvcc each, all
+     started together; print their ptxas resources;
   3. hold the forward kernel against its plain PyTorch version on the card,
      under the forward contract of tests/test_pallas.py (outlier fraction
      <= 1% at 1e-2*scale, mean abs diff < 1e-3*scale);
@@ -25,7 +25,8 @@ result lines):
      800x600 depth-5 3x3 render with --backend auto, counting trace_fwd's
      launches and holding the image against the plain version;
   7. the training path: raytpu_torch.examples.fit_scene.main at config 3
-     (640x480, depth 4, 3x3 AA), 3 geometry steps with --backend auto,
+     (640x480, depth 4, 3x3 AA), 3 geometry steps with --backend cuda (the
+     kernel pair; "auto" trains a frame this size through the wavefront),
      counting both kernels' launches; the fit's first gradient against
      the kernel's and, on the masked cotangent, against the plain version;
   8. time the config-3 training step and the backward kernel alone, then
@@ -49,7 +50,27 @@ result lines):
      wavefront frame; a chunk x capacity sweep at config 5 with the drops
      of each point; the "auto" crossover cells at 640x480, wavefront against
      K1; K3 and K5 alone on config 5's chunk 0 at every level against their
-     plain versions, and their bounds for that work.
+     plain versions, and their bounds for that work;
+ 13. the wavefront's backward kernels against their plain versions at
+     config 5's widths (chunk 0 at the training ladder's first rung, level 0
+     and the first two compacted levels, seeded cotangents zeroed on the
+     rays whose forwards differ): the level backward (K4) under the
+     gradient contract per ray and per scene table, with exact zeros on
+     dead rays; the compaction's transpose (K6) bit for bit, also at a
+     capacity below the live count;
+ 14. the wavefront training path: raytpu_torch.grad.fit_scene at config 5
+     with backend="wavefront", 3 steps of matte and light colours from the
+     fit example's perturbation, counting K3, K4, K5 and K6 launches (chunks
+     x 7, chunks x 7, chunks x 6 x 2, chunks x 6 per step tried), no dropped
+     ray, the loss falling or holding, and the first step's loss and
+     gradient against the kernel pair's (tests/test_wavefront.py:196-219's
+     contract); then the fit example with --backend wavefront at config 3;
+ 15. times: the config-5 training step, wavefront against the kernel pair
+     (in turns, median of 3 after 1 warm-up) with its peak memory; a
+     torch.profiler breakdown of one wavefront step; a chunk sweep of the
+     step; the training crossover at the ten 640x480 cells of phase 12; K4
+     and K6 alone on config 5's chunk 0 at every level against their plain
+     versions (and K6 against torch.zeros + index_copy_), with their bounds.
 The last three lines are nvidia-smi's, the kernels JSON and
 {"ok": true, "device": ...}.
 """
@@ -576,6 +597,366 @@ def wavefront_phases(dev):
     return k3, k5
 
 
+def seeded_level_cotangents(scene, state, spawn, seed, tables):
+    """Seeded cotangents of one level on the card: emissions U(0.5, 1.5),
+    children U(-1, 1) with a zero index row, both zeroed on the rays whose
+    forwards (K3 against its plain version: emissions at 1e-5*scale,
+    children at rtol 1e-5) differ.  Returns (em_ct, ch_ct, kept rays, K3's
+    children)."""
+    import torch
+
+    from raytpu_torch.kernels.wavefront import wf_level, wf_level_torch
+
+    em, kids = wf_level(scene, state, spawn, tables)
+    pem, pkids = wf_level_torch(scene, state, spawn)
+    bad = (em - pem).abs().amax(dim=0) > 1e-5 * pem.abs().max()
+    if spawn:
+        bad |= (~torch.isclose(kids, pkids, rtol=1e-5, atol=1e-6).all(dim=0)
+                ).reshape(-1, 2).any(dim=1)
+    gen = torch.Generator(device=state.device).manual_seed(seed)
+    rays = state.shape[1]
+    em_ct = 0.5 + torch.rand((3, rays), generator=gen, device=state.device)
+    em_ct[:, bad] = 0.0
+    ch_ct = None
+    if spawn:
+        ch_ct = 2 * torch.rand((10, 2 * rays), generator=gen, device=state.device) - 1
+        ch_ct[9] = 0.0
+        ch_ct[:, bad.repeat_interleave(2)] = 0.0
+    return em_ct, ch_ct, ~bad, kids
+
+
+def level_grad_contract(scene, got, want, keep, state):
+    """K4 against its plain version: exact zeros on dead rays and in the
+    index row; per ray, each state cotangent of a kept ray within rtol 5e-2
+    where |plain| > 1e-3 * its field's scale; each scene table leaf under
+    grad_contract.  Returns (worst relative error per ray, per table, the
+    largest absolute error)."""
+    import torch
+
+    from raytpu_torch.kernels.trace_cuda import grads_from_table
+
+    dead = (state[6:9] == 0).all(dim=0)
+    check(bool((got[0][:, dead] == 0).all()) and bool((got[0][9] == 0).all()),
+          "K4: a dead ray's or the index row's cotangent is not an exact zero")
+    a, w = got[0][:9][:, keep].double(), want[0][:9][:, keep].double()
+    big = w.abs() > 1e-3 * w.abs().amax(dim=1, keepdim=True)
+    rel = ((a - w).abs()[big] / w.abs()[big])
+    worst_ray = float(rel.max()) if rel.numel() else 0.0
+    check(worst_ray <= 5e-2, f"K4: {int((rel > 5e-2).sum())} state cotangents "
+          f"off rtol 5e-2 (worst {worst_ray})")
+    n, nl = scene.spheres.count, scene.lights.count
+    tables = [grads_from_table(torch.cat([t.reshape(-1) for t in g[1:]]), n, nl)
+              for g in (got, want)]
+    worst_tbl, max_abs = grad_contract(*tables)
+    return worst_ray, worst_tbl, max(max_abs, float((a - w).abs().max()))
+
+
+def training_phases(dev):
+    """Phases 13-15: the wavefront training path (K4 and K6) at config 5.
+    Returns the two kernels' entries of the kernels JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import raytpu_torch.grad as grad
+    import raytpu_torch.render as render
+    from raytpu_torch.config import BENCH_CONFIGS, RenderConfig
+    from raytpu_torch.examples import fit_scene as fit_example
+    from raytpu_torch.kernels.trace_cuda import scene_tables
+    from raytpu_torch.kernels.wavefront import (WF_COMPACT, WF_LEVEL,
+                                                WF_LEVEL_BWD, WF_UNCOMPACT,
+                                                chunk_camera_state, compact,
+                                                compact_torch, uncompact,
+                                                uncompact_torch,
+                                                wavefront_sizes, wf_level,
+                                                wf_level_bwd, wf_level_bwd_torch)
+    from raytpu_torch.scene import (LEAF_NAMES, default_scene, random_scene,
+                                    scene_from_leaves, scene_leaves)
+    from raytpu_torch.utils.profiling import Timer
+
+    kernels = (WF_LEVEL, WF_LEVEL_BWD, WF_COMPACT, WF_UNCOMPACT)
+    c5 = BENCH_CONFIGS["config5"]
+    s5 = random_scene(256, seed=3, device=dev)
+    tables = scene_tables(s5)
+    first = render._wf_auto_trials(None, train=True)[0]
+    chunk, ws, cap, n_chunks = wavefront_sizes(c5, **first)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # Phase 13: K4 and K6 against their plain versions on chunk 0.
+    state, pid = chunk_camera_state(c5, chunk, n_chunks, 0, c5.num_pixels,
+                                    device=dev)
+    k4_err = k4_rel = 0.0
+    for level in range(3):
+        em_ct, ch_ct, keep, kids = seeded_level_cotangents(s5, state, True,
+                                                           level, tables)
+        got = wf_level_bwd(s5, state, em_ct, ch_ct, True, tables)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = wf_level_bwd_torch(s5, state, em_ct, ch_ct, True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        worst_ray, worst_tbl, max_abs = level_grad_contract(s5, got, want, keep, state)
+        k4_err, k4_rel = max(k4_err, max_abs), max(k4_rel, worst_ray, worst_tbl)
+        n_alive = int((kids[6:9] != 0).any(dim=0).sum())
+        line = (f"phase 13: config5 chunk 0 level {level}: {state.shape[1]} rays, "
+                f"cotangent zeroed on {int((~keep).sum())}; K4 vs plain "
+                f"({plain_s:.1f} s): worst relative error per ray "
+                f"{worst_ray:.3e}, per table {worst_tbl:.3e} (<= 5e-2), max abs "
+                f"{max_abs:.3e}; dead rays exact zeros")
+        for keep_n in (min(2 * state.shape[1], cap), n_alive // 2):
+            out = compact(kids, pid, keep_n, ws, return_src=True)
+            check(same(out, compact_torch(kids, pid, keep_n, ws, return_src=True)),
+                  f"K5 with its source index, level {level}: differs from plain")
+            gen = torch.Generator(device=dev).manual_seed(100 + level)
+            d = torch.randn((10, keep_n), generator=gen, device=dev)
+            back = uncompact(d, out[4], kids.shape[1])
+            torch.cuda.synchronize()
+            check(torch.equal(back, uncompact_torch(d, out[4], kids.shape[1])),
+                  f"K6 level {level} cap {keep_n}: differs from uncompact_torch")
+            line += (f"; K6 bit-identical at cap {keep_n} ({int(out[2])} "
+                     f"dropped)")
+        print(line)
+        state, pid = compact(kids, pid, min(2 * state.shape[1], cap), ws)[:2]
+
+    # Phase 14: the slice's path, fit_scene(backend="wavefront") at config 5.
+    truth = random_scene(256, seed=3, device=dev)
+    start = fit_example.perturb(truth, geometry=False)
+    with torch.no_grad():
+        target = render.render_single(truth, c5, "wavefront").reshape(-1, 3)
+    trainable = scene_from_leaves([n in ("spheres.matte", "lights.col")
+                                   for n in LEAF_NAMES])
+    calls = []
+    real = grad.loss_and_grad_wavefront
+
+    def spy(scene, cfg, target_flat, **kw):
+        out = real(scene, cfg, target_flat, **kw)
+        calls.append((scene, out, kw))
+        return out
+
+    grad.loss_and_grad_wavefront = spy
+    try:
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        _, losses = grad.fit_scene(
+            start, c5, target, steps=3, backend="wavefront", trainable=trainable,
+            optimizer=lambda p: torch.optim.Adam(p, lr=2e-2, eps=1e-16))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        l3, l4, l5, l6 = (k.launches for k in kernels)
+    finally:
+        grad.loss_and_grad_wavefront = real
+    chunks = [wavefront_sizes(c5, kw["chunk_rays"], kw["capacity_factor"])[3]
+              for _, _, kw in calls]
+    levels = c5.max_depth + 1
+    check((l3, l4, l5, l6) == (sum(chunks) * levels, sum(chunks) * levels,
+                               sum(chunks) * (levels - 1) * 2,
+                               sum(chunks) * (levels - 1)),
+          f"launches K3 {l3} K4 {l4} K5 {l5} K6 {l6} for {len(calls)} steps of "
+          f"{chunks} chunks")
+    kept = [c for c in calls if c[1][2]["dropped"] == 0]
+    check(len(kept) == 3, f"{len(calls) - len(kept)} of {len(calls)} steps dropped rays")
+    check(all(np.isfinite(losses)) and losses[-1] <= losses[0],
+          f"the fit's loss rose: {losses}")
+    scene0, (loss_w, grads_w, info0), opts0 = kept[0]
+    loss_k, grads_k = grad.loss_and_grad(scene0, c5, target, backend="cuda")
+    rel_loss = abs(float(loss_w) - float(loss_k)) / abs(float(loss_k))
+    check(rel_loss <= 1e-5, f"first loss {float(loss_w)} vs K1+K2 {float(loss_k)}")
+    worst_leaf = 0.0
+    for name, a, b in zip(LEAF_NAMES, scene_leaves(grads_w), scene_leaves(grads_k)):
+        scale = max(float(b.abs().max()), 1e-30)
+        frac = float((a - b).abs().max()) / scale
+        check(np.isfinite(frac) and frac <= 2e-3, f"{name}: max |wf - K2| = {frac} x scale")
+        worst_leaf = max(worst_leaf, frac)
+    print(f"phase 14: fit_scene config5 1920x1080 d6 a3 N=256 backend=wavefront, "
+          f"3 steps of matte + light colours ({fit_s:.2f} s, {len(calls)} calls at "
+          f"{[kw for _, _, kw in calls][0]}): K3 {l3}, K4 {l4}, K5 {l5}, K6 {l6} "
+          f"launches ({chunks} chunks); dropped 0; loss "
+          + " -> ".join(f"{v:.6e}" for v in losses)
+          + f"; first step vs K1+K2: loss rel {rel_loss:.2e} (<= 1e-5), worst "
+          f"leaf max|diff|/scale {worst_leaf:.2e} (<= 2e-3)")
+    for k in kernels:
+        k.launches = 0
+    c3 = BENCH_CONFIGS["config3"]
+    fit = fit_example.main([
+        "--width", str(c3.width), "--height", str(c3.height), "--depth",
+        str(c3.max_depth), "--alias-factor", str(c3.alias_factor), "--mode",
+        "geometry", "--steps", "3", "--backend", "wavefront"])
+    torch.cuda.synchronize()
+    check(WF_LEVEL_BWD.launches > 0 and WF_UNCOMPACT.launches > 0,
+          "the example did not launch K4 and K6")
+    check(len(fit["losses"]) == 3 and all(np.isfinite(fit["losses"])),
+          f"example losses {fit['losses']}")
+    print(f"phase 14: fit example config 3 --backend wavefront, 3 steps: K3 "
+          f"{WF_LEVEL.launches}, K4 {WF_LEVEL_BWD.launches}, K5 "
+          f"{WF_COMPACT.launches}, K6 {WF_UNCOMPACT.launches} launches; loss "
+          f"{fit['start_loss']:.6e} -> " + " -> ".join(f"{v:.6e}" for v in fit["losses"]))
+
+    # Phase 15: times.  The config-5 training step, wavefront and K1 + K2.
+    timer = Timer(dev)
+    wf = lambda: grad.loss_and_grad_wavefront(start, c5, target, **opts0)  # noqa: E731
+    k2 = lambda: grad.loss_and_grad(start, c5, target, backend="cuda")  # noqa: E731
+    wf(), k2()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(3):
+        with timer.section("k2"):
+            k2()
+        with timer.section("wf"):
+            wf()
+    peak = torch.cuda.max_memory_allocated(dev)
+    k2_ms, wf_ms = median_ms(timer, "k2"), median_ms(timer, "wf")
+    print(f"phase 15: config5 training step ({opts0}): wavefront {wf_ms:.3f} ms, "
+          f"K1 + K2 {k2_ms:.3f} ms ({k2_ms / wf_ms:.2f}x); peak memory "
+          f"{peak / 2**30:.2f} GiB (both)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ms_prof, _ = events_ms(wf, reps=1, warmup=0)
+    groups = dict.fromkeys(["K3 wf_level", "K5 wf_compact", "K4 wf_level_bwd",
+                            "K6 wf_uncompact", "index_add_",
+                            "index_add_ backward gather", "rest"], 0.0)
+    from torch.autograd import DeviceType
+    rest = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        name, low = e.key, e.key.lower()
+        group = ("K4 wf_level_bwd" if "wf_level_bwd_kernel" in name
+                 else "K3 wf_level" if "wf_level_kernel" in name
+                 else "K6 wf_uncompact" if "wf_uncompact_kernel" in name
+                 else "K5 wf_compact" if "wf_count_kernel" in name or "wf_scatter_kernel" in name
+                 else "index_add_ backward gather" if "indexselect" in low or "gather" in low
+                 else "index_add_" if "index" in low
+                 else "rest")
+        groups[group] += us / 1e3
+        if group == "rest":
+            rest[name[:60]] = us / 1e3
+    busy = sum(groups.values())
+    if busy == 0:
+        print("phase 15: config5 training step profile: no device time seen by "
+              "torch.profiler (not measured)")
+    else:
+        print(f"phase 15: config5 training step profile ({ms_prof:.3f} ms under "
+              f"the profiler; device busy {busy:.3f} ms, idle share "
+              f"{max(0.0, 1 - busy / ms_prof):.4f}): "
+              + ", ".join(f"{k} {v:.3f} ms ({v / busy:.2%})" for k, v in groups.items()))
+        print("phase 15: the rest's largest: " + "; ".join(
+            f"{k} {v:.3f} ms" for k, v in sorted(rest.items(), key=lambda kv: -kv[1])[:4]))
+    for chunk_rays in (1 << 20, 1 << 21, 1 << 22):
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, (_, _, i) = events_ms(lambda: grad.loss_and_grad_wavefront(
+            start, c5, target, chunk_rays=chunk_rays,
+            capacity_factor=first["capacity_factor"], on_drop="ignore",
+            return_info=True), reps=2)
+        print(f"phase 15: sweep config5 training step chunk_rays {chunk_rays} "
+              f"({wavefront_sizes(c5, chunk_rays, first['capacity_factor'])[3]} "
+              f"chunks) x capacity {first['capacity_factor']}: {ms:.3f} ms, dropped "
+              f"{i['dropped']}, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+    # The training crossover: the cells of phase 12, one training step each
+    # way, in turns (median of the last 3 of 4).
+    cells = [(3, 4), (16, 4), (64, 2), (32, 4), (128, 2), (16, 6), (64, 4),
+             (256, 2), (64, 6), (256, 4)]
+    for n_spheres, depth in cells:
+        sc = (default_scene(device=dev) if n_spheres == 3
+              else random_scene(n_spheres, seed=3, device=dev))
+        cfg = RenderConfig(width=640, height=480, max_depth=depth)
+        tgt = torch.zeros((cfg.num_pixels, 3), device=dev)
+        timer = Timer(dev)
+        infos = []
+        for _ in range(4):
+            with timer.section("k2"):
+                grad.loss_and_grad(sc, cfg, tgt, backend="cuda")
+            with timer.section("wf"):
+                infos.append(grad.loss_and_grad_wavefront(
+                    sc, cfg, tgt, on_drop="ignore", return_info=True, **first)[2])
+        k, w = (float(np.median(timer.summary()[n][1:])) * 1e3 for n in ("k2", "wf"))
+        auto = grad.resolve_train_backend("auto", sc, cfg)
+        print(f"phase 15: training crossover N={sc.spheres.count} 640x480 d{depth}: "
+              f"N*d {sc.spheres.count * depth}; K1 + K2 {k:.3f} ms, wavefront "
+              f"{w:.3f} ms ({w / k:.3f}x; dropped {infos[-1]['dropped']}); "
+              f"training auto picks {auto}")
+
+    # K4 and K6 alone on chunk 0, every level: kernel (median of 3 after 1
+    # warm-up), plain version (one run) and, for K6, torch.zeros +
+    # index_copy_ on the same columns; bounds of that work.  K4: the
+    # forward's and the adjoint's operations over the plain version's masks
+    # on each level's state, bytes of 10 + 3 + 18 floats in and 9 out per ray
+    # slot; K6: 10 floats read per kept slot and 9 written per child slot.
+    state, pid = chunk_camera_state(c5, chunk, n_chunks, 0, c5.num_pixels,
+                                    device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    k4_ms = k4_plain = k6_ms = k6_plain = k6_lib = 0.0
+    k4_ops = k4_bytes = k6_bytes = 0
+    for level in range(levels):
+        spawn = level < c5.max_depth
+        rays = state.shape[1]
+        em_ct = 0.5 + torch.rand((3, rays), generator=gen, device=dev)
+        ch_ct = (2 * torch.rand((10, 2 * rays), generator=gen, device=dev) - 1
+                 if spawn else None)
+        need = level > 0
+        ms, _ = events_ms(lambda: wf_level_bwd(s5, state, em_ct, ch_ct, spawn,
+                                               tables, need_state=need))
+        pms, _ = events_ms(lambda: wf_level_bwd_torch(s5, state, em_ct, ch_ct, spawn),
+                           reps=1, warmup=0)
+        work = wavefront_level_work(s5, state, spawn)
+        ops = (sum(FWD_OPS[k] * work[k] for k in FWD_OPS if k != "sample")
+               + sum(ADJ_OPS[k] * work[k] for k in ADJ_OPS))
+        k4_ms, k4_plain, k4_ops = k4_ms + ms, k4_plain + pms, k4_ops + ops
+        k4_bytes += 4 * rays * (10 + 3 + (18 if spawn else 0) + 9)
+        line = (f"phase 15: config5 chunk 0 level {level}: {rays} ray slots, "
+                f"{work['node']} live; K4 {ms:.3f} ms, plain {pms:.3f} ms, "
+                f"{ops / 1e9:.4f} GFLOP")
+        if spawn:
+            _, kids = wf_level(s5, state, True, tables)
+            keep_n = min(2 * rays, cap)
+            out = compact(kids, pid, keep_n, ws, return_src=True)
+            kept = int(out[3])
+            d = torch.randn((10, keep_n), generator=gen, device=dev)
+            src = out[4]
+            cms, _ = events_ms(lambda: uncompact(d, src, kids.shape[1]))
+            cpms, _ = events_ms(lambda: uncompact_torch(d, src, kids.shape[1]),
+                                reps=1, warmup=0)
+            cols = src[:kept].long()
+
+            def library():
+                o = torch.zeros((10, kids.shape[1]), device=dev)
+                return o.index_copy_(1, cols, d[:, :kept])
+
+            lms, lib_out = events_ms(library)
+            check(torch.equal(lib_out[:9], uncompact(d, src, kids.shape[1])[:9]),
+                  f"level {level}: the library yardstick computes another function")
+            k6_ms, k6_plain, k6_lib = k6_ms + cms, k6_plain + cpms, k6_lib + lms
+            k6_bytes += 4 * (10 * kept + 9 * kids.shape[1])
+            line += (f"; K6 {cms:.3f} ms, plain {cpms:.3f} ms, zeros + index_copy_ "
+                     f"{lms:.3f} ms, {kept} kept of {kids.shape[1]}")
+            state, pid = out[0], out[1]
+        print(line)
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+        return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+    k4_bound, k6_bound = bound(k4_ops, k4_bytes), bound(0, k6_bytes)
+    print(f"phase 15: config5 chunk 0, {levels} levels: K4 {k4_ms:.3f} ms (plain "
+          f"{k4_plain:.3f} ms), bound {k4_bound[0]:.4f} ms by {k4_bound[1]} "
+          f"({k4_ops / 1e9:.3f} GFLOP at 67 TFLOP/s, {k4_bytes / 1e6:.3f} MB at "
+          f"3.35 TB/s); K6 {k6_ms:.3f} ms (plain {k6_plain:.3f} ms, zeros + "
+          f"index_copy_ {k6_lib:.3f} ms), bound {k6_bound[0]:.4f} ms by bytes "
+          f"({k6_bytes / 1e6:.3f} MB)")
+    work_note = f"config5 chunk 0 ({chunk} camera rays), all {levels} levels"
+    k4 = {"launches": l4, "max_abs_err": k4_err, "max_rel_err": k4_rel,
+          "ms": k4_ms, "plain_ms": k4_plain,
+          "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "work": work_note,
+          "step_ms": wf_ms, "library_ms": None}
+    k6 = {"launches": l6, "max_abs_err": 0.0, "ms": k6_ms, "plain_ms": k6_plain,
+          "bound_ms": k6_bound[0], "bound_by": k6_bound[1], "work": work_note,
+          "library_ms": k6_lib}
+    return k4, k6
+
+
 def main() -> int:
     import torch
 
@@ -597,11 +978,7 @@ def main() -> int:
                                                  render_pixels_torch,
                                                  scene_tables)
     from raytpu_torch.kernels.wavefront import (WF_COMPACT, WF_LEVEL,
-                                                chunk_camera_state, compact,
-                                                compact_torch,
-                                                render_pixels_wavefront,
-                                                wavefront_sizes, wf_level,
-                                                wf_level_torch)
+                                                WF_LEVEL_BWD, WF_UNCOMPACT)
     from raytpu_torch.scene import (default_scene, random_scene,
                                     scene_from_leaves, scene_leaves,
                                     single_sphere_scene)
@@ -613,7 +990,8 @@ def main() -> int:
     print(f"phase 1: device {name} | nvidia-smi: {smi}")
 
     # Phase 2: build, one nvcc per source, all at once.
-    kernels = (TRACE_FWD, TRACE_BWD, WF_LEVEL, WF_COMPACT)
+    kernels = (TRACE_FWD, TRACE_BWD, WF_LEVEL, WF_COMPACT, WF_LEVEL_BWD,
+               WF_UNCOMPACT)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         nvcc_s = list(pool.map(lambda k: k.build(), kernels))
@@ -731,7 +1109,7 @@ def main() -> int:
         fit = fit_example.main([
             "--width", str(c3.width), "--height", str(c3.height),
             "--depth", str(c3.max_depth), "--alias-factor", str(c3.alias_factor),
-            "--mode", "geometry", "--steps", "3", "--backend", "auto"])
+            "--mode", "geometry", "--steps", "3", "--backend", "cuda"])
         torch.cuda.synchronize()
         fwd_launches, bwd_launches = TRACE_FWD.launches, TRACE_BWD.launches
     finally:
@@ -777,7 +1155,7 @@ def main() -> int:
 
     # Phase 8: times, kernel and plain version in turns on one card.
     timer = Timer(dev)
-    step = lambda: grad.loss_and_grad(scene0, c3, target)  # noqa: E731
+    step = lambda: grad.loss_and_grad(scene0, c3, target, backend="cuda")  # noqa: E731
     bwd = lambda: grad_pixels_cuda(scene0, c3, g)  # noqa: E731
     step(), bwd()  # warm-up
     for _ in range(5):
@@ -819,6 +1197,7 @@ def main() -> int:
         print(f"phase 9: {label} bound {ms:.4f} ms by {by} ({ops / 1e9:.3f} "
               f"GFLOP at 67 TFLOP/s, {nbytes / 1e6:.3f} MB at 3.35 TB/s)")
     k3, k5 = wavefront_phases(dev)
+    k4, k6 = training_phases(dev)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
@@ -844,7 +1223,13 @@ def main() -> int:
         {"name": "wf_compact", "route": "cuda",
          "source": os.path.relpath(str(WF_COMPACT.source), ROOT),
          "replaces": "raytpu/kernels/wavefront.py:476", **k5,
-         "library_ms": None}]}))
+         "library_ms": None},
+        {"name": "wf_level_bwd", "route": "cuda",
+         "source": os.path.relpath(str(WF_LEVEL_BWD.source), ROOT),
+         "replaces": "raytpu/kernels/wavefront.py:265", **k4},
+        {"name": "wf_uncompact", "route": "cuda",
+         "source": os.path.relpath(str(WF_UNCOMPACT.source), ROOT),
+         "replaces": "raytpu/kernels/wavefront.py:591", **k6}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

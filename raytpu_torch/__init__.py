@@ -11,9 +11,9 @@ Public surface:
     raytpu_torch.image      tone mapping + PPM I/O (golden-image contract)
     raytpu_torch.trace      eager bounce-tree tracer + camera model
     raytpu_torch.kernels    the CUDA kernels (dense forward and backward, the
-                            wavefront's level and compaction), their plain
-                            versions, the autograd Function pairing the dense
-                            pair, and the wavefront tracer
+                            wavefront's level and compaction and their
+                            backwards), their plain versions, the autograd
+                            Functions pairing them, and the wavefront tracer
     raytpu_torch.render     backend choice, one-device render with the
                             wavefront's capacity ladder, CUDA-event timing
     raytpu_torch.grad       losses, scene gradient, fit, finite differences
@@ -24,7 +24,8 @@ Public surface:
 
 from raytpu_torch.config import BENCH_CONFIGS, RenderConfig
 from raytpu_torch.grad import (exposure_image_loss, finite_difference_check,
-                               fit_scene, image_loss, loss_and_grad)
+                               fit_scene, image_loss, loss_and_grad,
+                               loss_and_grad_wavefront)
 from raytpu_torch.image import max_colour_value, read_ppm, tone_map, write_ppm
 from raytpu_torch.kernels.wavefront import (render_image_wavefront,
                                             render_pixels_wavefront)
@@ -52,7 +53,8 @@ __all__ = [
     "render_single", "render_timed", "resolve_backend", "DroppedRaysError",
     "render_pixels_wavefront", "render_image_wavefront",
     "tone_map", "write_ppm", "read_ppm", "max_colour_value",
-    "image_loss", "exposure_image_loss", "loss_and_grad", "fit_scene",
+    "image_loss", "exposure_image_loss", "loss_and_grad",
+    "loss_and_grad_wavefront", "fit_scene",
     "finite_difference_check", "save_checkpoint", "load_checkpoint",
     "__version__",
 ]

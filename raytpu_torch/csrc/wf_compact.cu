@@ -76,7 +76,7 @@ wf_scatter_kernel(const float* __restrict__ children, long long kids,
                   const long long* __restrict__ starts,
                   const long long* __restrict__ total, long long cap,
                   int n_slots, float* __restrict__ out,
-                  int* __restrict__ out_pid) {
+                  int* __restrict__ out_pid, int* __restrict__ src) {
   __shared__ int warp_off[kBlock / 32];
   const long long j = (long long)blockIdx.x * kBlock + threadIdx.x;
   const bool live = live_child(children, kids, j);
@@ -102,12 +102,14 @@ wf_scatter_kernel(const float* __restrict__ children, long long kids,
         out[f * cap + dest] = children[f * kids + j];
       }
       out_pid[dest] = pid[j >> 1];
+      if (src) src[dest] = (int)j;
     }
   }
   const long long kept = *total < cap ? *total : cap;
   if (j >= kept && j < cap) {
     for (int f = 0; f < kFields; ++f) out[f * cap + j] = 0.0f;
     out_pid[j] = (int)(j % n_slots);
+    if (src) src[j] = -1;
   }
 }
 
@@ -131,13 +133,13 @@ extern "C" int raytpu_wf_scatter(const float* children, long long kids,
                                  const int* pid, const long long* starts,
                                  const long long* total, long long cap,
                                  int n_slots, float* out, int* out_pid,
-                                 int device, void* stream) {
+                                 int* src, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const long long span = kids > cap ? kids : cap;
   if (span <= 0) return (int)cudaSuccess;
   const long long blocks = (span + kBlock - 1) / kBlock;
   wf_scatter_kernel<<<(unsigned)blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      children, kids, pid, starts, total, cap, n_slots, out, out_pid);
+      children, kids, pid, starts, total, cap, n_slots, out, out_pid, src);
   return (int)cudaGetLastError();
 }

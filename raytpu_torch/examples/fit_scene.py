@@ -7,6 +7,8 @@ Run on the CPU:   python -m raytpu_torch.examples.fit_scene --cpu --steps 60
 Config 3's training step (640x480, depth 4, 3x3 AA):
     python -m raytpu_torch.examples.fit_scene --width 640 --height 480 \\
         --depth 4 --alias-factor 3 --mode geometry --steps 3
+The same through the differentiable wavefront: add --backend wavefront.
+The sharded fit (--mesh) is not ported yet (ROADMAP Queue 1 item 7).
 
 The perturbation draws from numpy.random.default_rng(0), not jax.random:
 the port cannot reproduce jax.random's bits, so its perturbed scene differs
@@ -42,9 +44,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fit on the CPU (default: the first CUDA device)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
                     help="shard the fit over N devices (not ported yet)")
-    ap.add_argument("--backend", default="auto", choices=["auto", "torch", "cuda"],
-                    help="gradient backend: the forward/backward kernel pair, "
-                         "or autograd through the eager tracer")
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "torch", "cuda", "wavefront"],
+                    help="gradient backend: cuda, the forward/backward kernel "
+                         "pair; wavefront, the differentiable wavefront (the "
+                         "large-scene path: per-level kernels and their "
+                         "backwards, live-ray compaction and its transpose, "
+                         "the capacity ladder on drops); torch, autograd "
+                         "through the eager tracer; auto, as "
+                         "raytpu_torch.grad.resolve_train_backend")
     ap.add_argument("--checkpoint", default=None,
                     help="path to save/restore the fit's scene every 10 steps")
     return ap

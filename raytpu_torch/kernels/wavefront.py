@@ -24,6 +24,21 @@ camera rays and each chunk level by level:
 Compaction is exact: a dead child carries zero intensity, and a ray of zero
 intensity emits exact zeros and spawns nothing (wavefront.py:14-22).
 
+Differentiable (the counterpart of raytpu's custom VJPs _wf_level_ad and
+_compact_blocked_ad): when grad is enabled and a scene leaf requires grad,
+each level runs as WfLevelFn and each compaction as CompactFn, and autograd
+differentiates the glue (the level-0 reshape-sum, `index_add_`, the
+strided copy into the frame, scene_tables' concatenation):
+
+  * K4, `wf_level_bwd` (csrc/wf_level_bwd.cu; it replaces wavefront.py:
+    _make_wf_bwd_kernel): one level's backward, the hand-written node
+    adjoint of trace_adjoint.cuh over the same state, with the medium's
+    cotangents routed through the index's gather into the scene table;
+  * K6, `uncompact` (csrc/wf_uncompact.cu; it replaces wavefront.py:
+    _make_inverse_cursor_kernel and the inverse co-sorts around it): the
+    compaction's transpose, the slot cotangents back to the child columns
+    K5 kept them from (its saved `src`), exact zeros everywhere else.
+
 The chunking is raytpu's, so that the same arguments give the same
 capacities and the same drop counts: pixel-major strided chunks (chunk c
 owns the window pixels {c + k * n_chunks : k < ws}, all spp samples of a
@@ -40,7 +55,8 @@ index_add_ scatters with atomics in L2 and a strided slice is a view.
 compaction; streams measured neutral on the TPU; no Pallas interpreter).
 
 A scene on the CPU runs each kernel's plain version (`wf_level_torch`,
-`compact_torch`); a scene on a CUDA device launches the kernels or raises.
+`compact_torch`, `wf_level_bwd_torch`, `uncompact_torch`); a scene on a
+CUDA device launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -51,13 +67,17 @@ import math
 import torch
 
 from raytpu_torch.config import RenderConfig
-from raytpu_torch.kernels.trace_cuda import (CudaKernel, _check_depth,
+from raytpu_torch.kernels.trace_cuda import (BG_ROWS, LIGHT_ROWS, SCENE_ROWS,
+                                             SMEM_BYTES, CudaKernel,
+                                             _bwd_shared_bytes, _check_depth,
                                              _check_scene, _cuda_device,
                                              scene_tables)
 from raytpu_torch.ops.geometry import normalize
+from raytpu_torch.scene import scene_from_leaves, scene_leaves
 from raytpu_torch.trace import _gather_medium, _trace_level, camera_constants
 
 N_STATE = 10
+N_DIFF = 9  # the state fields with a cotangent: not the medium index
 # raytpu's chunk and capacity alignment (its 64 x 128-ray kernel block):
 # kept so that the port and raytpu's global compaction size every level
 # alike and count the same drops on the same arguments.
@@ -78,10 +98,21 @@ WF_COMPACT = CudaKernel(
     "wf_compact", "wf_compact.cu", "raytpu_wf_count",
     # children, kids, counts, device, stream
     [_p, _ll, _p, _i, _p],
-    # children, kids, pid, starts, total, cap, n_slots, out, out_pid,
+    # children, kids, pid, starts, total, cap, n_slots, out, out_pid, src,
     # device, stream
-    entries={"raytpu_wf_scatter": [_p, _ll, _p, _p, _p, _ll, _i, _p, _p,
+    entries={"raytpu_wf_scatter": [_p, _ll, _p, _p, _p, _ll, _i, _p, _p, _p,
                                    _i, _p]})
+
+WF_LEVEL_BWD = CudaKernel(
+    "wf_level_bwd", "wf_level_bwd.cu", "raytpu_wf_level_bwd",
+    # scene, n, lights, nl, bg, state, rays, spawn, em_ct, ch_ct, d_state,
+    # gout, shared_grad, device, stream
+    [_p, _i, _p, _i, _p, _p, _ll, _i, _p, _p, _p, _p, _i, _i, _p])
+
+WF_UNCOMPACT = CudaKernel(
+    "wf_uncompact", "wf_uncompact.cu", "raytpu_wf_uncompact",
+    # d_state, cap, src, kids, d_children, device, stream
+    [_p, _ll, _p, _ll, _p, _i, _p])
 
 _COUNT_BLOCK = 1024  # children per block of wf_count_kernel
 
@@ -90,10 +121,11 @@ def _align_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _check_state(state, fields: int, device, name: str):
-    if state.dim() != 2 or state.shape[0] != fields:
+def _check_state(state, fields: int, device, name: str, cols: int | None = None):
+    if (state.dim() != 2 or state.shape[0] != fields
+            or cols is not None and state.shape[1] != cols):
         raise ValueError(f"{name} has shape {tuple(state.shape)}, expected "
-                         f"({fields}, rays)")
+                         f"({fields}, {'rays' if cols is None else cols})")
     if state.dtype != torch.float32:
         raise TypeError(f"{name} is {state.dtype}, the kernel takes float32")
     if state.device != device:
@@ -164,6 +196,83 @@ def wf_level(scene, state, spawn: bool, tables=None):
 
 
 # --------------------------------------------------------------------------
+# K4: one level's backward.
+
+
+def wf_level_bwd_torch(scene, state, em_ct, ch_ct, spawn: bool):
+    """K4's plain version: torch.autograd.grad of
+    sum(em * em_ct) + sum(children * ch_ct) through wf_level_torch with
+    respect to the scene leaves and the state, PLAIN_RAYS rays at a time,
+    the scene gradients summed.  Returns (d_state (10, R), d_spheres (12,
+    N), d_lights (6, L), d_bg (5,)), the tables laid out as scene_tables.
+    d_state is zero in the medium-index row and on dead rays (intensity
+    all exactly zero), as K4 writes it: autograd would give a dead ray that
+    misses gw * M, which no cotangent can carry to the scene, since a dead
+    ray comes from a slot or child that no live ray spawned."""
+    leaves = [t.detach().requires_grad_(True) for t in scene_leaves(scene)]
+    ad_scene = scene_from_leaves(leaves)
+    total = [torch.zeros_like(t) for t in leaves]
+    d_state = torch.zeros_like(state)
+    rays = state.shape[1]
+    with torch.enable_grad():
+        for lo in range(0, rays, PLAIN_RAYS):
+            hi = min(lo + PLAIN_RAYS, rays)
+            part = state[:, lo:hi].detach().requires_grad_(True)
+            em, kids = wf_level_torch(ad_scene, part, spawn)
+            out = torch.sum(em * em_ct[:, lo:hi])
+            if spawn:
+                out = out + torch.sum(kids * ch_ct[:, 2 * lo:2 * hi])
+            *grads, d_part = torch.autograd.grad(out, leaves + [part],
+                                                 allow_unused=True)
+            for acc, d in zip(total, grads):
+                if d is not None:
+                    acc += d
+            if d_part is not None:
+                d_state[:N_DIFF, lo:hi] = d_part[:N_DIFF]
+    d_state[:, (state[6:9] == 0).all(dim=0)] = 0.0
+    return (d_state, *scene_tables(scene_from_leaves(total)))
+
+
+def wf_level_bwd(scene, state, em_ct, ch_ct, spawn: bool, tables=None,
+                 need_state: bool = True):
+    """The backward of wf_level(scene, state, spawn) for the cotangents
+    em_ct (3, R) of its emissions and ch_ct (10, 2R) of its children (None
+    when not `spawn`): (d_state (10, R) or None without `need_state`,
+    d_spheres (12, N), d_lights (6, L), d_bg (5,)).  On a CUDA scene this
+    launches K4 (or raises); on a CPU scene it runs the plain version.
+    The kernel sums with atomics, so the last bits vary between runs."""
+    device = _cuda_device(scene, "wf_level_bwd")
+    _check_state(state, N_STATE, device, "the ray state")
+    rays = state.shape[1]
+    _check_state(em_ct, 3, device, "the emission cotangent", rays)
+    if spawn:
+        _check_state(ch_ct, N_STATE, device, "the children's cotangent", 2 * rays)
+    if device.type == "cpu":
+        d_state, *grads = wf_level_bwd_torch(scene, state, em_ct, ch_ct, spawn)
+        return (d_state if need_state else None, *grads)
+    _check_scene(scene, device)
+    n, nl = scene.spheres.count, scene.lights.count
+    ns, nls = SCENE_ROWS * n, LIGHT_ROWS * nl
+    gout = torch.zeros(ns + nls + BG_ROWS, dtype=torch.float32, device=device)
+    d_state = torch.empty_like(state) if need_state else None
+    if rays > 0:
+        spheres_tbl, lights_tbl, bg_tbl = tables or scene_tables(scene)
+        fn = WF_LEVEL_BWD.function()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(spheres_tbl.data_ptr(), n, lights_tbl.data_ptr(), nl,
+                 bg_tbl.data_ptr(), state.data_ptr(), rays, int(spawn),
+                 em_ct.data_ptr(), ch_ct.data_ptr() if spawn else None,
+                 d_state.data_ptr() if need_state else None, gout.data_ptr(),
+                 int(_bwd_shared_bytes(n, nl) <= SMEM_BYTES),
+                 device.index or 0, stream)
+        if err != 0:
+            raise RuntimeError(f"wf_level_bwd launch failed: CUDA error {err}")
+        WF_LEVEL_BWD.launches += 1
+    return (d_state, gout[:ns].view(SCENE_ROWS, n),
+            gout[ns:ns + nls].view(LIGHT_ROWS, nl), gout[ns + nls:])
+
+
+# --------------------------------------------------------------------------
 # K5: live-ray compaction.
 
 
@@ -179,13 +288,15 @@ def _check_compact(children, pid, cap: int, n_slots: int, device):
         raise ValueError(f"need cap >= 0 and n_slots >= 1, got {cap}, {n_slots}")
 
 
-def compact_torch(children, pid, cap: int, n_slots: int):
+def compact_torch(children, pid, cap: int, n_slots: int, return_src: bool = False):
     """K5's plain version.  children (10, 2R) with ray i's children at 2i
     and 2i+1, pid (R,) int32 the parents' slot ids.  Returns (state (10,
     cap), pid (cap,) int32, dropped, n_kept): the live children in order
     in the first n_kept slots with their parents' pids, zero state and pid
     (slot mod n_slots) after them; dropped = max(n_alive - cap, 0) and
-    n_kept = min(n_alive, cap) as 0-d int64 tensors."""
+    n_kept = min(n_alive, cap) as 0-d int64 tensors.  With `return_src`,
+    also src (cap,) int32: the child column each kept slot holds, -1 after
+    the kept prefix (what the backward, uncompact, needs)."""
     _check_compact(children, pid, cap, n_slots, children.device)
     device = children.device
     alive = (children[6:9] != 0).any(dim=0)
@@ -198,17 +309,22 @@ def compact_torch(children, pid, cap: int, n_slots: int):
     out_pid = (slot % n_slots).to(torch.int32)
     state[:, dest] = children[:, keep]
     out_pid[dest] = pid.repeat_interleave(2)[keep]
-    return (state, out_pid, torch.clamp(total - cap, min=0),
-            torch.clamp(total, max=cap))
+    out = (state, out_pid, torch.clamp(total - cap, min=0),
+           torch.clamp(total, max=cap))
+    if not return_src:
+        return out
+    src = torch.full((cap,), -1, dtype=torch.int32, device=device)
+    src[dest] = torch.nonzero(keep).squeeze(1).to(torch.int32)
+    return (*out, src)
 
 
-def compact(children, pid, cap: int, n_slots: int):
+def compact(children, pid, cap: int, n_slots: int, return_src: bool = False):
     """compact_torch's function; on CUDA tensors it launches K5 (a count
     kernel, a cumulative sum of the block counts, a scatter kernel) or
-    raises."""
+    raises.  Without `return_src` the scatter writes no source index."""
     device = children.device
     if device.type == "cpu":
-        return compact_torch(children, pid, cap, n_slots)
+        return compact_torch(children, pid, cap, n_slots, return_src)
     if device.type != "cuda":
         raise ValueError(f"compact takes CPU or CUDA tensors, got {device}")
     _check_compact(children, pid, cap, n_slots, device)
@@ -231,16 +347,114 @@ def compact(children, pid, cap: int, n_slots: int):
         total = torch.zeros((), dtype=torch.int64, device=device)
     state = torch.empty((N_STATE, cap), dtype=torch.float32, device=device)
     out_pid = torch.empty(cap, dtype=torch.int32, device=device)
+    src = torch.empty(cap, dtype=torch.int32, device=device) if return_src else None
     if max(kids, cap) > 0:
         err = WF_COMPACT.function("raytpu_wf_scatter")(
             children.data_ptr(), kids, pid.data_ptr(), starts.data_ptr(),
             total.data_ptr(), cap, n_slots, state.data_ptr(),
-            out_pid.data_ptr(), dev, stream)
+            out_pid.data_ptr(), src.data_ptr() if return_src else None, dev,
+            stream)
         if err != 0:
             raise RuntimeError(f"wf_scatter launch failed: CUDA error {err}")
         WF_COMPACT.launches += 1
-    return (state, out_pid, torch.clamp(total - cap, min=0),
-            torch.clamp(total, max=cap))
+    out = (state, out_pid, torch.clamp(total - cap, min=0),
+           torch.clamp(total, max=cap))
+    return (*out, src) if return_src else out
+
+
+# --------------------------------------------------------------------------
+# K6: the compaction's transpose.
+
+
+def _check_uncompact(d_state, src, device):
+    _check_state(d_state, N_STATE, device, "the state cotangent")
+    if src.dim() != 1 or src.shape[0] != d_state.shape[1]:
+        raise ValueError(f"src has shape {tuple(src.shape)}; the state "
+                         f"cotangent needs one per slot ({d_state.shape[1]})")
+    if src.dtype != torch.int32 or src.device != device:
+        raise TypeError(f"src must be int32 on {device}, got {src.dtype} on "
+                        f"{src.device}")
+
+
+def uncompact_torch(d_state, src, kids: int):
+    """K6's plain version: the (10, kids) cotangent of the children that
+    compact(..., return_src=True) read, for the cotangent d_state (10, cap)
+    of its state: d_children[f, src[k]] = d_state[f, k] for the 9
+    differentiable fields of every kept slot (src[k] >= 0), zero
+    elsewhere."""
+    out = torch.zeros((N_STATE, kids), dtype=d_state.dtype, device=d_state.device)
+    keep = src >= 0
+    out[:N_DIFF, src[keep].to(torch.int64)] = d_state[:N_DIFF, keep]
+    return out
+
+
+def uncompact(d_state, src, kids: int):
+    """uncompact_torch's function; on CUDA tensors it launches K6 (one
+    kernel, no host read) or raises."""
+    device = d_state.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"uncompact takes CPU or CUDA tensors, got {device}")
+    _check_uncompact(d_state, src, device)
+    if device.type == "cpu":
+        return uncompact_torch(d_state, src, kids)
+    out = torch.empty((N_STATE, kids), dtype=torch.float32, device=device)
+    if kids > 0:
+        err = WF_UNCOMPACT.function()(
+            d_state.data_ptr(), d_state.shape[1], src.data_ptr(), kids,
+            out.data_ptr(), device.index or 0,
+            torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"wf_uncompact launch failed: CUDA error {err}")
+        WF_UNCOMPACT.launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# The autograd pairings.
+
+
+class WfLevelFn(torch.autograd.Function):
+    """One level, differentiable: forward K3 (wf_level), backward K4
+    (wf_level_bwd), the counterpart of raytpu's _wf_level_ad.  The tensor
+    inputs are the three scene tables and the state, so that autograd
+    routes the table gradients through scene_tables to the scene leaves.
+    It saves its inputs only; the tables are the frame's, shared by every
+    level."""
+
+    @staticmethod
+    def forward(ctx, scene, spawn, spheres_tbl, lights_tbl, bg_tbl, state):
+        ctx.scene, ctx.spawn = scene, spawn
+        ctx.save_for_backward(spheres_tbl, lights_tbl, bg_tbl, state)
+        em, children = wf_level(scene, state, spawn,
+                                (spheres_tbl, lights_tbl, bg_tbl))
+        return (em, children) if spawn else em
+
+    @staticmethod
+    def backward(ctx, em_ct, ch_ct=None):
+        *tables, state = ctx.saved_tensors
+        d_state, *grads = wf_level_bwd(
+            ctx.scene, state, em_ct.contiguous(),
+            ch_ct.contiguous() if ctx.spawn else None, ctx.spawn,
+            tuple(tables), need_state=ctx.needs_input_grad[5])
+        return (None, None, *grads, d_state)
+
+
+class CompactFn(torch.autograd.Function):
+    """The compaction, differentiable: forward K5 with its source index,
+    backward K6 (uncompact), the counterpart of raytpu's
+    _compact_blocked_ad.  It keeps the source index and the child count."""
+
+    @staticmethod
+    def forward(ctx, children, pid, cap, n_slots):
+        state, out_pid, dropped, n_kept, src = compact(children, pid, cap,
+                                                       n_slots, return_src=True)
+        ctx.src, ctx.kids = src, children.shape[1]
+        ctx.mark_non_differentiable(out_pid, dropped, n_kept)
+        return state, out_pid, dropped, n_kept
+
+    @staticmethod
+    def backward(ctx, d_state, *_):
+        return uncompact(d_state.contiguous(), ctx.src, ctx.kids), None, None, None
 
 
 # --------------------------------------------------------------------------
@@ -311,8 +525,15 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
     whose children fit the capacity passes them on uncompacted (dead ones
     included).  With `return_info` it also returns {'dropped': 0-d int64
     tensor on the scene's device}, the live rays lost to capacity, summed
-    over the frame on the device."""
+    over the frame on the device.
+
+    When grad is enabled and a scene leaf requires grad, the frame is
+    differentiable: levels run as WfLevelFn (K3 forward, K4 backward) and
+    compactions as CompactFn (K5, K6 backward).  A dropped ray then takes
+    no gradient: the caller enforces the counter."""
     device = _cuda_device(scene, "render_pixels_wavefront")
+    ad = torch.is_grad_enabled() and any(t.requires_grad
+                                         for t in scene_leaves(scene))
     tables = None
     if device.type == "cuda":
         # Every kernel of the port takes max_depth <= kMaxDepth; the
@@ -320,6 +541,8 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
         # configurations.
         _check_depth(cfg)
         _check_scene(scene, device)
+        tables = scene_tables(scene)
+    elif ad:
         tables = scene_tables(scene)
     npix = cfg.num_pixels if count is None else int(count)
     if offset < 0 or shard_stride < 1 or npix < 1:
@@ -336,7 +559,11 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
                                         shard_stride, device)
         for level in range(cfg.max_depth + 1):
             spawn = level < cfg.max_depth
-            em, children = wf_level(scene, state, spawn, tables)
+            if ad:
+                out = WfLevelFn.apply(scene, spawn, *tables, state)
+                em, children = out if spawn else (out, None)
+            else:
+                em, children = wf_level(scene, state, spawn, tables)
             if level == 0:
                 accw = em.reshape(3, ws, spp).sum(dim=2)
             else:
@@ -347,7 +574,8 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
             if 2 * rays <= cap and not eager_sort:
                 state, pid = children, pid.repeat_interleave(2)
             else:
-                state, pid, lost, _ = compact(children, pid, min(2 * rays, cap), ws)
+                step = CompactFn.apply if ad else compact
+                state, pid, lost, _ = step(children, pid, min(2 * rays, cap), ws)
                 dropped += lost
         # Slot k of chunk c is window pixel c + k * n_chunks.
         mine = acc[:, c::n_chunks]

@@ -43,6 +43,21 @@ def _wf_wins(n_spheres: int, depth: int) -> bool:
     return n_spheres * depth >= _WF_MIN_WORK
 
 
+# The training step's crossover on the same card (chip_smoke.py phase 15,
+# PERF.md): one loss_and_grad step through the differentiable wavefront
+# (K3 + K5 forward, K4 + K6 backward, 4M-ray chunks) against the kernel
+# pair (K1 + K2), in turns.  At 640x480 3x3 the wavefront won all ten cells
+# of the forward's crossover, N x depth from 12 to 1024, at 0.12-0.76x the
+# pair's time (default scene at depth 4, config 3's frame: 0.76x), and at
+# config 5 0.18x.  Frames below 640x480 3x3 were not measured; there the
+# pair stays.
+_WF_MIN_TRAIN_RAYS = 640 * 480 * 9
+
+
+def _wf_wins_train(cfg: RenderConfig) -> bool:
+    return cfg.rays_per_frame >= _WF_MIN_TRAIN_RAYS
+
+
 def resolve_backend(backend: str = "auto", device="cpu", scene=None,
                     cfg: RenderConfig | None = None) -> str:
     """Resolve "auto" to a concrete backend for a scene on `device`.  With
@@ -74,16 +89,25 @@ def resolve_backend(backend: str = "auto", device="cpu", scene=None,
 # 256K-1M; 1.0 dropped none.
 WF_AUTO_CHUNK = 1 << 22
 WF_AUTO_LADDER = (1.0, 1.25, 2.0, 4.0)
+# The training step's (the differentiable wavefront, K3 + K5 forward, K4 +
+# K6 backward), from chip_smoke.py phase 15's sweep at config 5, factor
+# 1.0: 1M-ray chunks 495 ms a step, 2M 466, 4M 450, none dropping, peak
+# memory 8.8, 9.0 and 9.9 GiB.  The first rung never dropped there, so the
+# ladder is the forward's.
+WF_AUTO_CHUNK_TRAIN = 1 << 22
+WF_AUTO_LADDER_TRAIN = WF_AUTO_LADDER
 
 
-def _wf_auto_trials(wf_opts: dict | None):
+def _wf_auto_trials(wf_opts: dict | None, train: bool = False):
     """The wavefront option dicts to try in order: the ladder unless
-    wf_opts names a capacity_factor, then exactly that."""
+    wf_opts names a capacity_factor, then exactly that.  `train` takes the
+    training step's chunk and ladder."""
     o = dict(wf_opts or {})
     if "capacity_factor" in o:
         return [o]
-    o.setdefault("chunk_rays", WF_AUTO_CHUNK)
-    return [dict(o, capacity_factor=c) for c in WF_AUTO_LADDER]
+    o.setdefault("chunk_rays", WF_AUTO_CHUNK_TRAIN if train else WF_AUTO_CHUNK)
+    ladder = WF_AUTO_LADDER_TRAIN if train else WF_AUTO_LADDER
+    return [dict(o, capacity_factor=c) for c in ladder]
 
 
 def _warn_escalate(n: int, tried: dict, nxt: dict):

@@ -1,5 +1,6 @@
 """The CUDA kernels (dense forward and backward, the wavefront's level and
-compaction) against their plain PyTorch versions, on a card.
+compaction and their backwards) against their plain PyTorch versions, on a
+card, and the paths that launch them.
 
 This file imports torch and the port only, so it runs where jax is absent;
 tests/conftest.py imports jax, so on such a machine run it as
@@ -11,7 +12,10 @@ tests/test_pallas.py:19-27: outliers at 1e-2*scale <= 1%, mean abs diff
 < 1e-3*scale.  The backward's is tests/test_pallas.py:304-314 (rtol 5e-2
 where |plain| > 1e-3*scale), with the cotangent zeroed on the pixels whose
 forwards differ by more than 1e-5*scale (a flipped grazing branch has a
-near-singular gradient).
+near-singular gradient).  The wavefront's level backward is held per ray
+and per table under the same contract; its compaction transpose bit for
+bit; its whole gradient against the kernel pair's under
+tests/test_wavefront.py:196-219's (every leaf within 2e-3*scale).
 """
 
 import dataclasses
@@ -21,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from raytpu_torch.config import RenderConfig
+from raytpu_torch.config import BENCH_CONFIGS, RenderConfig
 from raytpu_torch.grad import loss_and_grad
 from raytpu_torch.kernels import trace_cuda, wavefront
 from raytpu_torch.kernels.trace_cuda import (grad_pixels_cuda, grad_pixels_torch,
@@ -234,3 +238,192 @@ def test_cli_time_json_has_dropped(dev, capsys):
                      "--time"]) == 0
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert stats["dropped"] == 0 and stats["backend"] == "wavefront"
+
+
+def masked_level_cotangents(scene, state, spawn, seed):
+    """Seeded cotangents of one level's emissions, U(0.5, 1.5), and
+    children, U(-1, 1) with a zero medium-index row, both zeroed on the
+    rays whose forwards (K3 against its plain version: emissions at
+    1e-5*scale, children at rtol 1e-5) differ; returns (em_ct, ch_ct,
+    the rays kept)."""
+    em, kids = wavefront.wf_level(scene, state, spawn)
+    pem, pkids = wavefront.wf_level_torch(scene, state, spawn)
+    bad = (em - pem).abs().amax(dim=0) > 1e-5 * pem.abs().max()
+    if spawn:
+        off = ~torch.isclose(kids, pkids, rtol=1e-5, atol=1e-6).all(dim=0)
+        bad |= off.reshape(-1, 2).any(dim=1)
+    assert bad.float().mean() <= 0.01
+    rng = np.random.default_rng(seed)
+    rays = state.shape[1]
+    em_ct = torch.tensor(rng.uniform(0.5, 1.5, (3, rays)).astype(np.float32),
+                         device=state.device)
+    em_ct[:, bad] = 0.0
+    ch_ct = None
+    if spawn:
+        ch_ct = torch.tensor(rng.uniform(-1, 1, (10, 2 * rays)).astype(np.float32),
+                             device=state.device)
+        ch_ct[9] = 0.0
+        ch_ct[:, bad.repeat_interleave(2)] = 0.0
+    return em_ct, ch_ct, ~bad
+
+
+def assert_level_grads(got, want, keep, state):
+    """K4 against its plain version: d_state on the kept rays and every
+    table under the gradient contract (rtol 5e-2 where |plain| >
+    1e-3*scale), exact zeros on dead rays and in the index row."""
+    dead = (state[6:9] == 0).all(dim=0)
+    assert bool((got[0][:, dead] == 0).all()) and bool((got[0][9] == 0).all())
+    for a, w in zip((got[0][:, keep], *got[1:]), (want[0][:, keep], *want[1:])):
+        a, w = a.cpu().numpy().astype(np.float64), w.cpu().numpy().astype(np.float64)
+        assert np.isfinite(a).all()
+        scale = np.abs(w).max(axis=-1, keepdims=True) if a.ndim == 2 else np.abs(w).max()
+        big = np.abs(w) > 1e-3 * np.maximum(scale, 1e-30)
+        np.testing.assert_allclose(a[big], w[big], rtol=5e-2, atol=1e-12)
+
+
+def _level_two_states(scene, dev):
+    """2^15 camera rays (128x64 at alias 2) and their first compacted level."""
+    cfg = RenderConfig(width=128, height=64, max_depth=2, alias_factor=2)
+    chunk, ws, cap, n = wavefront.wavefront_sizes(cfg, 1 << 15, 2)
+    state, pid = wavefront.chunk_camera_state(cfg, chunk, n, 0, cfg.num_pixels,
+                                              device=dev)
+    _, kids = wavefront.wf_level(scene, state, True)
+    return state, wavefront.compact(kids, pid, min(2 * chunk, cap), ws)[0]
+
+
+@pytest.mark.parametrize("spawn", [True, False])
+def test_level_backward_kernel_matches_plain_version(dev, spawn):
+    scene = random_scene(32, seed=3, device=dev)
+    for i, state in enumerate(_level_two_states(scene, dev)):
+        em_ct, ch_ct, keep = masked_level_cotangents(scene, state, spawn, seed=i)
+        before = wavefront.WF_LEVEL_BWD.launches
+        got = wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, spawn)
+        torch.cuda.synchronize()
+        assert wavefront.WF_LEVEL_BWD.launches == before + 1
+        want = wavefront.wf_level_bwd_torch(scene, state, em_ct, ch_ct, spawn)
+        assert_level_grads(got, want, keep, state)
+        none = wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, spawn,
+                                      need_state=False)
+        assert none[0] is None
+
+
+def test_level_backward_global_table_instance(dev):
+    """3000 spheres: the gradient table outgrows shared memory, so K4 adds
+    into the global table; K2 refuses the scene."""
+    scene = random_scene(3000, seed=3, device=dev)
+    assert trace_cuda._bwd_shared_bytes(3000, scene.lights.count) > trace_cuda.SMEM_BYTES
+    cfg = RenderConfig(width=32, height=16, max_depth=1, alias_factor=1)
+    chunk, _, _, n = wavefront.wavefront_sizes(cfg, 1 << 13, 2)
+    state, _ = wavefront.chunk_camera_state(cfg, chunk, n, 0, cfg.num_pixels,
+                                            device=dev)
+    em_ct, ch_ct, keep = masked_level_cotangents(scene, state, True, seed=3)
+    got = wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, True)
+    torch.cuda.synchronize()
+    assert_level_grads(got, wavefront.wf_level_bwd_torch(scene, state, em_ct, ch_ct, True),
+                       keep, state)
+
+
+def test_uncompact_kernel_is_bit_identical_to_plain_version(dev):
+    scene = random_scene(32, seed=3, device=dev)
+    cfg, ws, cap, (state, pid) = _level_states(scene, dev)
+    _, kids = wavefront.wf_level(scene, state, True)
+    rng = np.random.default_rng(4)
+    n_alive = int((kids[6:9] != 0).any(dim=0).sum())
+    for keep in (min(2 * state.shape[1], cap), n_alive // 2):
+        got = wavefront.compact(kids, pid, keep, ws, return_src=True)
+        want = wavefront.compact_torch(kids, pid, keep, ws, return_src=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        d = torch.tensor(rng.normal(size=(10, keep)).astype(np.float32), device=dev)
+        before = wavefront.WF_UNCOMPACT.launches
+        out = wavefront.uncompact(d, got[4], kids.shape[1])
+        torch.cuda.synchronize()
+        assert wavefront.WF_UNCOMPACT.launches == before + 1
+        assert torch.equal(out, wavefront.uncompact_torch(d, got[4], kids.shape[1]))
+
+
+def test_loss_and_grad_wavefront_matches_kernel_pair(dev):
+    """tests/test_wavefront.py:196-219's case and contract: loss rtol 1e-5,
+    every leaf within 2e-3 * max |K2's|; K3/K4 once per level and chunk,
+    K5 twice and K6 once per compaction."""
+    from raytpu_torch.grad import loss_and_grad_wavefront
+
+    cfg = RenderConfig(width=64, height=48, max_depth=3, alias_factor=1)
+    scene = random_scene(24, num_lights=2, seed=5, device=dev)
+    target = torch.zeros(cfg.num_pixels, 3, device=dev)
+    counts = [k.launches for k in (wavefront.WF_LEVEL, wavefront.WF_LEVEL_BWD,
+                                   wavefront.WF_COMPACT, wavefront.WF_UNCOMPACT)]
+    lw, gw = loss_and_grad_wavefront(scene, cfg, target, chunk_rays=1024)
+    torch.cuda.synchronize()
+    chunks = wavefront.wavefront_sizes(cfg, 1024, 2.0)[3]
+    assert [k.launches - c for k, c in zip(
+        (wavefront.WF_LEVEL, wavefront.WF_LEVEL_BWD, wavefront.WF_COMPACT,
+         wavefront.WF_UNCOMPACT), counts)] == [chunks * 4, chunks * 4,
+                                               chunks * 3 * 2, chunks * 3]
+    lp, gp = loss_and_grad(scene, cfg, target, backend="cuda")
+    np.testing.assert_allclose(float(lw), float(lp), rtol=1e-5)
+    for a, b in zip(scene_leaves(gw), scene_leaves(gp)):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert np.abs(a - b).max() <= 2e-3 * max(float(np.abs(b).max()), 1e-12)
+
+
+def test_fit_scene_wavefront_escalates_the_ladder(dev):
+    """The frame-filling transparent sphere overflows capacity 1: the
+    dropped step is discarded and re-run at the next rung."""
+    from raytpu_torch.grad import fit_scene, loss_and_grad_wavefront
+    from raytpu_torch.render import DroppedRaysError
+    from raytpu_torch.scene import build_scene, make_material
+
+    mat = make_material(0.3, (0.2, 0.4, 0.6), (0.9, 0.9, 0.9), opacity=0.0, ior=1.5)
+    scene = build_scene(sphere_specs=[((0.0, 0.0, -10.0), 9.9, mat)],
+                        light_specs=[((10.0, 30.0, 10.0), (0.5, 0.5, 0.5))],
+                        device=dev)
+    cfg = RenderConfig(width=128, height=64, max_depth=2, alias_factor=1)
+    target = torch.zeros(cfg.num_pixels, 3, device=dev)
+    with pytest.raises(DroppedRaysError):
+        loss_and_grad_wavefront(scene, cfg, target, chunk_rays=256, capacity_factor=1)
+    with pytest.warns(RuntimeWarning, match="auto-capacity"):
+        _, losses = fit_scene(scene, cfg, target, steps=1, backend="wavefront",
+                              wf_opts=dict(chunk_rays=256))
+    assert len(losses) == 1 and np.isfinite(losses[0])
+
+
+def test_wavefront_backward_raises_on_what_it_does_not_take(dev):
+    from raytpu_torch.grad import loss_and_grad_wavefront
+
+    scene = default_scene(device=dev)
+    cfg, ws, cap, (state, pid) = _level_states(scene, dev)
+    rays = state.shape[1]
+    em_ct = torch.ones(3, rays, device=dev)
+    ch_ct = torch.zeros(10, 2 * rays, device=dev)
+    with pytest.raises(TypeError):
+        wavefront.wf_level_bwd(scene, state.double(), em_ct, ch_ct, True)
+    with pytest.raises(ValueError):   # one emission cotangent short
+        wavefront.wf_level_bwd(scene, state, em_ct[:, :-1].contiguous(), ch_ct, True)
+    with pytest.raises(ValueError):   # children's cotangent for R, not 2R, rays
+        wavefront.wf_level_bwd(scene, state, em_ct, ch_ct[:, :rays].contiguous(), True)
+    with pytest.raises(ValueError):   # state on the CPU, scene on the card
+        wavefront.wf_level_bwd(scene, state.cpu(), em_ct, ch_ct, True)
+    _, kids = wavefront.wf_level(scene, state, True)
+    src = wavefront.compact(kids, pid, cap, ws, return_src=True)[4]
+    d = torch.zeros(10, cap, device=dev)
+    with pytest.raises(TypeError):
+        wavefront.uncompact(d, src.long(), kids.shape[1])
+    with pytest.raises(ValueError):
+        wavefront.uncompact(d[:, :-1].contiguous(), src, kids.shape[1])
+    with pytest.raises(TypeError):
+        wavefront.uncompact(d.double(), src, kids.shape[1])
+    with pytest.raises(ValueError):
+        loss_and_grad_wavefront(scene, RenderConfig(
+            width=8, height=8, max_depth=trace_cuda.MAX_DEPTH + 1),
+            torch.zeros(64, 3, device=dev))
+
+
+def test_training_auto_takes_the_measured_crossover(dev):
+    from raytpu_torch.grad import resolve_train_backend
+
+    scene = default_scene(device=dev)
+    small = RenderConfig(width=40, height=30, max_depth=2)
+    assert resolve_train_backend("auto", scene, BENCH_CONFIGS["config3"]) == "wavefront"
+    assert resolve_train_backend("auto", scene, small) == "cuda"
+    # K2 cannot stage 3000 spheres' tables: the wavefront at any size.
+    assert resolve_train_backend("auto", random_scene(3000, device=dev), small) == "wavefront"

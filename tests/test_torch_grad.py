@@ -245,14 +245,12 @@ def test_unported_training_paths_name_the_roadmap():
     cfg = tconfig.RenderConfig(width=8, height=4, max_depth=0, alias_factor=1)
     target = torch.zeros(cfg.num_pixels, 3)
     for kw in (dict(mesh=object()), dict(interleave=True),
-               dict(wf_opts={}), dict(backend="wavefront")):
+               dict(mesh=object(), backend="wavefront"),
+               dict(interleave=True, wf_opts={})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tgrad.fit_scene(ts, cfg, target, steps=1, **kw)
-    for fn in (tgrad.loss_and_grad_wavefront, tgrad.loss_and_grad_sharded):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(ts, cfg, target)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgrad.loss_and_grad(ts, cfg, target, backend="wavefront")
+        tgrad.loss_and_grad_sharded(ts, cfg, target)
     with pytest.raises(ValueError):
         tgrad.loss_and_grad(ts, cfg, target, backend="cuda")  # CPU scene
     with pytest.raises(NotImplementedError, match="ROADMAP"):
