@@ -10,7 +10,10 @@ result lines):
   1. a CUDA device is present; print its nvidia-smi name and power limit;
   2. build every kernel (trace_fwd, trace_bwd, wf_level, wf_compact,
      wf_level_bwd, wf_uncompact) from raytpu_torch/csrc, one nvcc each, all
-     started together; print their ptxas resources;
+     started together, and wf_level.cu's counting host build (g++
+     -DRT_BVH_COUNT); print every instance's ptxas resources and hold K1's
+     and K2's to the lines they had before the sphere queries became a
+     policy (the policies leave their code as it was);
   3. hold the forward kernel against its plain PyTorch version on the card,
      under the forward contract of tests/test_pallas.py (outlier fraction
      <= 1% at 1e-2*scale, mean abs diff < 1e-3*scale);
@@ -50,7 +53,15 @@ result lines):
      wavefront frame; a chunk x capacity sweep at config 5 with the drops
      of each point; the "auto" crossover cells at 640x480, wavefront against
      K1; K3 and K5 alone on config 5's chunk 0 at every level against their
-     plain versions, and their bounds for that work;
+     plain versions, K3 (through its BVH) against its brute-force reference
+     instance bit for bit (emissions, children, sel) and in turns (ref, new,
+     new, ref), and their bounds for that work: K3's from the boxes and
+     spheres a counting host build of the walk tests on a 1-in-64 sample of
+     each level, beside the reference algorithm's, and its bytes from each
+     level's live count; K3 against its reference the same way on two
+     scenes outside config 5, the default scene (N = 3) and
+     random_scene(3000) (the tree read through the read-only cache), each
+     at 640x480 d4 3x3;
  13. the wavefront's backward kernels against their plain versions at
      config 5's widths (chunk 0 at the training ladder's first rung, level 0
      and the first two compacted levels, seeded cotangents zeroed on the
@@ -70,7 +81,10 @@ result lines):
      torch.profiler breakdown of one wavefront step; a chunk sweep of the
      step; the training crossover at the ten 640x480 cells of phase 12; K4
      and K6 alone on config 5's chunk 0 at every level against their plain
-     versions (and K6 against torch.zeros + index_copy_), with their bounds.
+     versions (and K6 against torch.zeros + index_copy_); K4 (from K3's
+     sel) against its reference instance (re-running the brute-force
+     queries), d_state bit for bit and the tables within 1e-5 x scale, in
+     turns; their bounds, K4's beside the reference algorithm's.
 The last three lines are nvidia-smi's, the kernels JSON and
 {"ok": true, "device": ...}.
 """
@@ -152,6 +166,49 @@ def nvidia_smi_line() -> str:
                          capture_output=True, text=True, timeout=60)
     check(res.returncode == 0, f"nvidia-smi failed: {res.stderr}")
     return res.stdout.strip().splitlines()[0]
+
+
+# K1's and K2's ptxas resource lines (sm_90a) from before the sphere
+# queries became a policy of trace_common.cuh: the brute-force policy they
+# use must leave their code unchanged.
+BRUTE_FORCE_PTXAS = {
+    "trace_fwd": ("496 bytes stack frame, 20 bytes spill stores, 12 bytes spill loads",
+                  "Used 64 registers, used 1 barriers, 496 bytes cumulative stack size"),
+    "trace_bwd": ("2176 bytes stack frame, 24 bytes spill stores, 16 bytes spill loads",
+                  "Used 128 registers, used 1 barriers, 2176 bytes cumulative stack size"),
+}
+
+
+def ptxas_resources(log):
+    """The resource lines of an nvcc -Xptxas -v log, without their prefix."""
+    out = []
+    for line in log.splitlines():
+        if "registers" in line or "stack frame" in line:
+            out.append(line.split("ptxas info    : ")[-1].strip())
+    return out
+
+
+def build_counting_host():
+    """wf_level.cu built by g++ with -DRT_BVH_COUNT: the host traversal that
+    counts the boxes and spheres each query tests.  Returns the library."""
+    import ctypes
+    import hashlib
+
+    from raytpu_torch.kernels.trace_cuda import BUILD_DIR, CSRC, _sources
+
+    src = CSRC / "wf_level.cu"
+    h = hashlib.sha256(b"".join(p.read_bytes() for p in _sources(src))).hexdigest()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = BUILD_DIR / f"libwf_level_count_{h[:16]}.so"
+    res = subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
+                          "-DRT_BVH_COUNT", "-shared", "-fPIC", "-o", str(path),
+                          str(src)], capture_output=True, text=True)
+    check(res.returncode == 0, f"g++ counting build failed: {res.stderr}")
+    lib = ctypes.CDLL(str(path))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.raytpu_wf_level_host.argtypes = [p, i, p, i, p, p, p, i, p, ll, i, p, p, p]
+    lib.raytpu_bvh_counts_host.argtypes = [p]
+    return lib
 
 
 def median_ms(timer, name):
@@ -305,6 +362,81 @@ def events_ms(fn, reps=3, warmup=1):
     return float(np.median(times)), out
 
 
+def turns(ref, new, rounds=2):
+    """ref and new timed in turns ref, new, new, ref (`rounds` times, after
+    one warm-up each), each run between CUDA events: (median ms of ref,
+    of new, the warm-up results of ref and of new)."""
+    ref_out, new_out = ref(), new()
+    times = {ref: [], new: []}
+    for _ in range(rounds):
+        for fn in (ref, new, new, ref):
+            times[fn].append(events_ms(fn, reps=1, warmup=0)[0])
+    return (float(np.median(times[ref])), float(np.median(times[new])), ref_out,
+            new_out)
+
+
+def same_bits(a, b):
+    """Tensors equal bit for bit (floats compared as their int32 words)."""
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+# fp32 operations of the tree walk (csrc/bvh.cuh): a slab test (6
+# subtractions, 6 products, 6 min/max per axis pair, 6 clips, 1 compare), a
+# point-in-box test (6 compares), and a query's 3 inverse directions.
+BOX_OPS, POINT_BOX_OPS, QUERY_SETUP_OPS = 25, 6, 3
+# FWD_OPS keys the tree replaces: the three loops over every sphere.
+LOOP_KEYS = ("sphere", "shadow_sphere", "container")
+# FWD_OPS keys of the node's O(1) forward that K4 rebuilds from sel.
+K4_FWD_KEYS = ("node", "miss", "live", "light", "lit", "spawn", "refl")
+SPHERE_ROOT_OPS = 35  # one sphere test with its real root (21 + 14)
+
+
+def traversal_counts(lib, tables, bvh, state, spawn, seed, every=64):
+    """The counting host build of K3 over a seeded 1-in-`every` sample of
+    the state's ray slots, scaled to all of them: boxes and spheres tested
+    by closest, blocked and contain (six numbers)."""
+    import ctypes
+
+    import torch
+
+    rays = state.shape[1]
+    k = max(rays // every, 1)
+    gen = torch.Generator().manual_seed(seed)
+    cols = torch.randperm(rays, generator=gen)[:k].sort().values
+    st = state[:, cols.to(state.device)].cpu().contiguous()
+    spheres, lights, bg = (t.cpu().contiguous() for t in tables)
+    boxes, order = bvh.boxes.cpu().contiguous(), bvh.order.cpu().contiguous()
+    em = torch.empty((3, k))
+    kids = torch.empty((10, 2 * k))
+    out = (ctypes.c_longlong * 6)()
+    lib.raytpu_bvh_counts_host(out)  # reset
+    lib.raytpu_wf_level_host(spheres.data_ptr(), spheres.shape[1], lights.data_ptr(),
+                             lights.shape[1], bg.data_ptr(), boxes.data_ptr(),
+                             order.data_ptr(), bvh.n_leaves, st.data_ptr(), k,
+                             int(spawn), em.data_ptr(), kids.data_ptr(), None)
+    lib.raytpu_bvh_counts_host(out)
+    return [v * rays / k for v in out]
+
+
+def bvh_level_ops(work, counts):
+    """K3's operations through the tree: FWD_OPS without the sphere loops,
+    plus the boxes and spheres the walk tested (traversal_counts)."""
+    ops = sum(FWD_OPS[k] * work[k] for k in FWD_OPS
+              if k != "sample" and k not in LOOP_KEYS)
+    box_c, box_b, box_p, sph_c, sph_b, sph_p = counts
+    ops += BOX_OPS * (box_c + box_b) + POINT_BOX_OPS * box_p
+    ops += QUERY_SETUP_OPS * (work["node"] + work["shadow"])
+    ops += FWD_OPS["sphere"] * sph_c + FWD_OPS["shadow_sphere"] * sph_b
+    ops += FWD_OPS["container"] * sph_p
+    return ops
+
+
 def wavefront_contract(got, want, frac_tol=0.005, mean_tol=1e-4):
     """tests/test_wavefront.py:25-36: outliers at 1e-3*scale <= 0.5%, mean
     abs diff < 1e-4*scale; returns the stats."""
@@ -341,7 +473,7 @@ def device_breakdown(prof):
     return groups if sum(groups.values()) > 0 else None
 
 
-def wavefront_phases(dev):
+def wavefront_phases(dev, count_lib):
     """Phases 10-12: the wavefront path (K3 and K5) at config 5.  Returns
     the two kernels' entries of the kernels JSON line."""
     import torch
@@ -352,11 +484,13 @@ def wavefront_phases(dev):
     from raytpu_torch.config import BENCH_CONFIGS, RenderConfig
     from raytpu_torch.image import read_ppm, tone_map
     from raytpu_torch.kernels.trace_cuda import render_pixels_cuda, scene_tables
+    from raytpu_torch.kernels.bvh import build_bvh
     from raytpu_torch.kernels.wavefront import (WF_COMPACT, WF_LEVEL,
                                                 chunk_camera_state, compact,
                                                 compact_torch,
                                                 render_pixels_wavefront,
                                                 wavefront_sizes, wf_level,
+                                                wf_level_reference,
                                                 wf_level_torch)
     from raytpu_torch.scene import default_scene, random_scene
     from raytpu_torch.utils.profiling import Timer
@@ -364,6 +498,7 @@ def wavefront_phases(dev):
     c5 = BENCH_CONFIGS["config5"]
     s5 = random_scene(256, seed=3, device=dev)
     tables = scene_tables(s5)
+    bvh = build_bvh(*tables[:2])
     first = dict(chunk_rays=render.WF_AUTO_CHUNK,
                  capacity_factor=render.WF_AUTO_LADDER[0])
     chunk, ws, cap, n_chunks = wavefront_sizes(c5, **first)
@@ -377,7 +512,7 @@ def wavefront_phases(dev):
                                     device=dev)
     k3_err = 0.0
     for level in range(3):
-        em, ch = wf_level(s5, state, True, tables)
+        em, ch = wf_level(s5, state, True, tables, bvh)
         torch.cuda.synchronize()
         pem, pch = wf_level_torch(s5, state, True)
         st = contract(em.T.cpu(), pem.T.cpu())
@@ -538,34 +673,63 @@ def wavefront_phases(dev):
     print(f"phase 12: config5 frame with a host read of every kept count: "
           f"{sy_ms:.3f} ms against {st_ms:.3f} ms without")
 
-    # K3 and K5 alone on chunk 0 of config 5, every level: kernel (median of
-    # 3 after 1 warm-up) and plain version (one run) on the same inputs, and
-    # the bounds of that work: K3's operations from the plain version's masks
-    # (FWD_OPS without the camera's "sample"), its bytes as 10 fields in, 3
-    # out and 20 child fields out per ray slot; K5's bytes as the 3
+    # K3 and K5 alone on chunk 0 of config 5, every level: K3 through the
+    # tree against its brute-force reference instance in turns (ref, new,
+    # new, ref, twice), bit for bit (emissions, children and, written by
+    # both, sel); K5 (median of 3 after 1 warm-up); the plain versions (one
+    # run) on the same inputs; the bounds of that work.  K3's operations:
+    # FWD_OPS over the plain version's masks without the camera's
+    # "sample", the sphere loops replaced by the boxes and spheres the
+    # counting host build tests on a 1-in-64 sample (bvh_level_ops); the
+    # reference algorithm's bound keeps the loops.  K3's bytes per launch:
+    # the scene tables and the tree read once; 10 fields read per live ray
+    # slot and the 3 intensities per dead one; 3 emissions and, on a
+    # spawning level, 20 child fields written per slot.  K5's bytes: the 3
     # intensities of every child, the other 7 fields of the kept ones, the
     # parents' pids and 11 words per output slot.
     state, pid = chunk_camera_state(c5, chunk, n_chunks, 0, c5.num_pixels,
                                     device=dev)
-    k3_ms = k3_plain = k3_live_ms = k5_ms = k5_plain = 0.0
-    k3_ops = k3_bytes = k5_bytes = 0
+    k3_ms = k3_ref_ms = k3_plain = k3_live_ms = k5_ms = k5_plain = 0.0
+    k3_ops = k3_ref_ops = k3_bytes = k5_bytes = 0
     for level in range(c5.max_depth + 1):
         spawn = level < c5.max_depth
         rays = state.shape[1]
-        ms, (em, ch) = events_ms(lambda: wf_level(s5, state, spawn, tables))
+        with_sel = (wf_level(s5, state, spawn, tables, bvh, return_sel=True),
+                    wf_level_reference(s5, state, spawn, tables, return_sel=True))
+        torch.cuda.synchronize()
+        check(all(same_bits(a, b) for a, b in zip(*with_sel)),
+              f"K3 level {level}: differs from its brute-force reference "
+              f"instance (emissions, children or sel)")
+        ref_ms, ms, ref_out, (em, ch) = turns(
+            lambda: wf_level_reference(s5, state, spawn, tables),
+            lambda: wf_level(s5, state, spawn, tables, bvh))
+        check(all(same_bits(a, b) for a, b in zip(ref_out, (em, ch))),
+              f"K3 level {level}: differs from its reference without sel")
         # The same level launched over its live prefix only (the kept rays
         # lead the state): what the dead slots cost K3.
         live_state = state[:, :int((state[6:9] != 0).any(dim=0).sum())].contiguous()
-        live_ms, _ = events_ms(lambda: wf_level(s5, live_state, spawn, tables))
+        live_ms, _ = events_ms(lambda: wf_level(s5, live_state, spawn, tables, bvh))
         k3_live_ms += live_ms
         pms, _ = events_ms(lambda: wf_level_torch(s5, state, spawn), reps=1, warmup=0)
         work = wavefront_level_work(s5, state, spawn)
-        ops = sum(FWD_OPS[k] * work[k] for k in FWD_OPS if k != "sample")
-        k3_ms, k3_plain, k3_ops = k3_ms + ms, k3_plain + pms, k3_ops + ops
-        k3_bytes += 4 * rays * (10 + 3 + (20 if spawn else 0))
+        ref_ops = sum(FWD_OPS[k] * work[k] for k in FWD_OPS if k != "sample")
+        counts = traversal_counts(count_lib, tables, bvh, state, spawn, seed=level)
+        ops = bvh_level_ops(work, counts)
+        k3_ms, k3_ref_ms, k3_plain = k3_ms + ms, k3_ref_ms + ref_ms, k3_plain + pms
+        k3_ops, k3_ref_ops = k3_ops + ops, k3_ref_ops + ref_ops
+        live = work["node"]
+        k3_bytes += 4 * (sum(t.numel() for t in tables) + bvh.boxes.numel()
+                         + bvh.order.numel() + 10 * live + 3 * (rays - live)
+                         + rays * (3 + (20 if spawn else 0)))
         line = (f"phase 12: config5 chunk 0 level {level}: {rays} ray slots, "
-                f"{work['node']} live; K3 {ms:.3f} ms ({live_ms:.3f} ms over "
-                f"the live prefix only), plain {pms:.3f} ms, {ops / 1e9:.4f} GFLOP")
+                f"{work['node']} live; K3 {ms:.3f} ms against its reference "
+                f"{ref_ms:.3f} ms ({ref_ms / ms:.2f}x), bit-identical with sel "
+                f"({live_ms:.3f} ms over the live prefix only), plain {pms:.3f} "
+                f"ms, {ops / 1e9:.4f} GFLOP through the tree ({ref_ops / 1e9:.4f} "
+                f"brute force; per live node {counts[0] / max(work['node'], 1):.1f} "
+                f"boxes and {counts[3] / max(work['node'], 1):.1f} spheres for the "
+                f"closest hit, per shadow ray {counts[1] / max(work['shadow'], 1):.1f} "
+                f"and {counts[4] / max(work['shadow'], 1):.1f})")
         if spawn:
             keep = min(2 * rays, cap)
             cms, out = events_ms(lambda: compact(ch, pid, keep, ws))
@@ -578,20 +742,60 @@ def wavefront_phases(dev):
             state, pid = out[0], out[1]
         print(line)
 
+    # K3 against its reference instance outside config 5, in turns and bit
+    # for bit at every level of one 640x480 d4 3x3 frame (one chunk): the
+    # smallest crossover cell's scene, and 3000 spheres, whose tree does not
+    # fit shared memory beside the scene and is read through the read-only
+    # cache.
+    other = {}
+    cfg = RenderConfig(width=640, height=480, max_depth=4)
+    for label, sc in (("default(3)", default_scene(device=dev)),
+                      ("random(3000)", random_scene(3000, seed=3, device=dev))):
+        tb = scene_tables(sc)
+        tree = build_bvh(*tb[:2])
+        ch_, ws_, cap_, n_ = wavefront_sizes(cfg, **first)
+        st, pd = chunk_camera_state(cfg, ch_, n_, 0, cfg.num_pixels, device=dev)
+        new_t = ref_t = 0.0
+        for level in range(cfg.max_depth + 1):
+            spawn = level < cfg.max_depth
+            check(all(same_bits(a, b) for a, b in zip(
+                wf_level(sc, st, spawn, tb, tree, return_sel=True),
+                wf_level_reference(sc, st, spawn, tb, return_sel=True))),
+                f"K3 {label} level {level}: differs from its reference instance")
+            ref_ms, ms, ref_out, (em, ch) = turns(
+                lambda: wf_level_reference(sc, st, spawn, tb),
+                lambda: wf_level(sc, st, spawn, tb, tree))
+            check(all(same_bits(a, b) for a, b in zip(ref_out, (em, ch))),
+                  f"K3 {label} level {level}: differs from its reference without sel")
+            new_t, ref_t = new_t + ms, ref_t + ref_ms
+            if spawn:
+                st, pd = compact(ch, pd, min(2 * st.shape[1], cap_), ws_)[:2]
+        other[f"{label} 640x480 d4"] = {"ms": new_t, "ref_ms": ref_t}
+        print(f"phase 12: {label} 640x480 d4 a3 chunk 0 ({ch_} camera rays), "
+              f"{cfg.max_depth + 1} levels: K3 {new_t:.3f} ms against its "
+              f"reference {ref_t:.3f} ms ({ref_t / new_t:.2f}x), bit-identical "
+              f"with sel at every level")
+
     def bound(ops, nbytes):
         t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
         return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
     k3_bound, k5_bound = bound(k3_ops, k3_bytes), bound(0, k5_bytes)
+    k3_ref_bound = bound(k3_ref_ops, k3_bytes)
     print(f"phase 12: config5 chunk 0, {c5.max_depth + 1} levels: K3 {k3_ms:.3f} ms "
-          f"({k3_live_ms:.3f} ms over the live prefixes; plain {k3_plain:.3f} ms), bound {k3_bound[0]:.4f} ms by {k3_bound[1]} "
+          f"against its reference {k3_ref_ms:.3f} ms ({k3_ref_ms / k3_ms:.2f}x; "
+          f"{k3_live_ms:.3f} ms over the live prefixes; plain {k3_plain:.3f} ms), "
+          f"bound {k3_bound[0]:.4f} ms by {k3_bound[1]} "
           f"({k3_ops / 1e9:.3f} GFLOP at 67 TFLOP/s, {k3_bytes / 1e6:.3f} MB at "
-          f"3.35 TB/s); K5 {k5_ms:.3f} ms (plain {k5_plain:.3f} ms), bound "
-          f"{k5_bound[0]:.4f} ms by bytes ({k5_bytes / 1e6:.3f} MB)")
+          f"3.35 TB/s), the reference algorithm's bound {k3_ref_bound[0]:.4f} ms "
+          f"({k3_ref_ops / 1e9:.3f} GFLOP); K5 {k5_ms:.3f} ms (plain "
+          f"{k5_plain:.3f} ms), bound {k5_bound[0]:.4f} ms by bytes "
+          f"({k5_bytes / 1e6:.3f} MB)")
     work_note = f"config5 chunk 0 ({chunk} camera rays), all {c5.max_depth + 1} levels"
     k3 = {"launches": l3, "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
-          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "work": work_note,
-          "frame_ms": wf_ms}
+          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "ref_ms": k3_ref_ms,
+          "ref_bound_ms": k3_ref_bound[0], "ref_bound_by": k3_ref_bound[1],
+          "work": work_note, "frame_ms": wf_ms, "ref_other_scenes": other}
     k5 = {"launches": l5, "max_abs_err": 0.0, "ms": k5_ms, "plain_ms": k5_plain,
           "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "work": work_note}
     return k3, k5
@@ -602,12 +806,12 @@ def seeded_level_cotangents(scene, state, spawn, seed, tables):
     children U(-1, 1) with a zero index row, both zeroed on the rays whose
     forwards (K3 against its plain version: emissions at 1e-5*scale,
     children at rtol 1e-5) differ.  Returns (em_ct, ch_ct, kept rays, K3's
-    children)."""
+    children, K3's selections)."""
     import torch
 
     from raytpu_torch.kernels.wavefront import wf_level, wf_level_torch
 
-    em, kids = wf_level(scene, state, spawn, tables)
+    em, kids, sel = wf_level(scene, state, spawn, tables, return_sel=True)
     pem, pkids = wf_level_torch(scene, state, spawn)
     bad = (em - pem).abs().amax(dim=0) > 1e-5 * pem.abs().max()
     if spawn:
@@ -622,7 +826,7 @@ def seeded_level_cotangents(scene, state, spawn, seed, tables):
         ch_ct = 2 * torch.rand((10, 2 * rays), generator=gen, device=state.device) - 1
         ch_ct[9] = 0.0
         ch_ct[:, bad.repeat_interleave(2)] = 0.0
-    return em_ct, ch_ct, ~bad, kids
+    return em_ct, ch_ct, ~bad, kids, sel
 
 
 def level_grad_contract(scene, got, want, keep, state):
@@ -668,7 +872,9 @@ def training_phases(dev):
                                                 compact_torch, uncompact,
                                                 uncompact_torch,
                                                 wavefront_sizes, wf_level,
-                                                wf_level_bwd, wf_level_bwd_torch)
+                                                wf_level_bwd,
+                                                wf_level_bwd_reference,
+                                                wf_level_bwd_torch, sel_rows)
     from raytpu_torch.scene import (LEAF_NAMES, default_scene, random_scene,
                                     scene_from_leaves, scene_leaves)
     from raytpu_torch.utils.profiling import Timer
@@ -688,9 +894,9 @@ def training_phases(dev):
                                     device=dev)
     k4_err = k4_rel = 0.0
     for level in range(3):
-        em_ct, ch_ct, keep, kids = seeded_level_cotangents(s5, state, True,
-                                                           level, tables)
-        got = wf_level_bwd(s5, state, em_ct, ch_ct, True, tables)
+        em_ct, ch_ct, keep, kids, sel = seeded_level_cotangents(s5, state, True,
+                                                                level, tables)
+        got = wf_level_bwd(s5, state, em_ct, ch_ct, True, tables, sel=sel)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = wf_level_bwd_torch(s5, state, em_ct, ch_ct, True)
@@ -879,38 +1085,70 @@ def training_phases(dev):
               f"{w:.3f} ms ({w / k:.3f}x; dropped {infos[-1]['dropped']}); "
               f"training auto picks {auto}")
 
-    # K4 and K6 alone on chunk 0, every level: kernel (median of 3 after 1
-    # warm-up), plain version (one run) and, for K6, torch.zeros +
-    # index_copy_ on the same columns; bounds of that work.  K4: the
-    # forward's and the adjoint's operations over the plain version's masks
-    # on each level's state, bytes of 10 + 3 + 18 floats in and 9 out per ray
-    # slot; K6: 10 floats read per kept slot and 9 written per child slot.
+    # K4 and K6 alone on chunk 0, every level: K4 from K3's sel against its
+    # reference instance (re-running the brute-force queries) in turns (ref,
+    # new, new, ref, twice), d_state bit for bit and the tables within 1e-5
+    # x max |ref| (atomics' order); K6 (median of 3 after 1 warm-up); the
+    # plain versions (one run) and, for K6, torch.zeros + index_copy_ on the
+    # same columns; bounds of that work.  K4: the adjoint's operations and
+    # the node's O(1) forward it rebuilds (K4_FWD_KEYS and one sphere root
+    # per hit) over the plain version's masks; the reference algorithm's
+    # bound adds the forward's sphere loops.  K4's bytes per launch: the
+    # scene tables read and the gradient table written once; per live ray
+    # slot 10 + 3 (+ 18 on a spawning level) floats and 2 + ceil(L/32) sel
+    # words read, per dead slot its 3 intensities; the 10 state cotangents
+    # written per slot where they are wanted (not at level 0, whose camera
+    # state takes none).  K6: 10 floats read per kept slot and 9 written
+    # per child slot.
     state, pid = chunk_camera_state(c5, chunk, n_chunks, 0, c5.num_pixels,
                                     device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
-    k4_ms = k4_plain = k6_ms = k6_plain = k6_lib = 0.0
-    k4_ops = k4_bytes = k6_bytes = 0
+    k4_ms = k4_ref_ms = k4_plain = k6_ms = k6_plain = k6_lib = 0.0
+    k4_ops = k4_ref_ops = k4_bytes = k6_bytes = 0
+    k4_tbl_err = 0.0
     for level in range(levels):
         spawn = level < c5.max_depth
         rays = state.shape[1]
         em_ct = 0.5 + torch.rand((3, rays), generator=gen, device=dev)
         ch_ct = (2 * torch.rand((10, 2 * rays), generator=gen, device=dev) - 1
                  if spawn else None)
+        _, kids, sel = wf_level(s5, state, spawn, tables, return_sel=True)
+        got = wf_level_bwd(s5, state, em_ct, ch_ct, spawn, tables, sel=sel)
+        want = wf_level_bwd_reference(s5, state, em_ct, ch_ct, spawn, tables)
+        torch.cuda.synchronize()
+        check(same_bits(got[0], want[0]),
+              f"K4 level {level}: d_state differs from its reference instance")
+        for a, b in zip(got[1:], want[1:]):
+            err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            check(err <= 1e-5, f"K4 level {level}: a table off its reference by "
+                  f"{err} x max |ref|")
+            k4_tbl_err = max(k4_tbl_err, err)
         need = level > 0
-        ms, _ = events_ms(lambda: wf_level_bwd(s5, state, em_ct, ch_ct, spawn,
-                                               tables, need_state=need))
+        ref_ms, ms, _, _ = turns(
+            lambda: wf_level_bwd_reference(s5, state, em_ct, ch_ct, spawn, tables,
+                                           need_state=need),
+            lambda: wf_level_bwd(s5, state, em_ct, ch_ct, spawn, tables,
+                                 need_state=need, sel=sel))
         pms, _ = events_ms(lambda: wf_level_bwd_torch(s5, state, em_ct, ch_ct, spawn),
                            reps=1, warmup=0)
         work = wavefront_level_work(s5, state, spawn)
-        ops = (sum(FWD_OPS[k] * work[k] for k in FWD_OPS if k != "sample")
-               + sum(ADJ_OPS[k] * work[k] for k in ADJ_OPS))
-        k4_ms, k4_plain, k4_ops = k4_ms + ms, k4_plain + pms, k4_ops + ops
-        k4_bytes += 4 * rays * (10 + 3 + (18 if spawn else 0) + 9)
+        adj = sum(ADJ_OPS[k] * work[k] for k in ADJ_OPS)
+        ops = (adj + sum(FWD_OPS[k] * work[k] for k in K4_FWD_KEYS)
+               + SPHERE_ROOT_OPS * (work["node"] - work["miss"]))
+        ref_ops = adj + sum(FWD_OPS[k] * work[k] for k in FWD_OPS if k != "sample")
+        k4_ms, k4_ref_ms, k4_plain = k4_ms + ms, k4_ref_ms + ref_ms, k4_plain + pms
+        k4_ops, k4_ref_ops = k4_ops + ops, k4_ref_ops + ref_ops
+        live = work["node"]
+        k4_bytes += 4 * (2 * sum(t.numel() for t in tables)
+                         + live * (10 + 3 + (18 if spawn else 0)
+                                   + sel_rows(s5.lights.count))
+                         + 3 * (rays - live) + (10 * rays if need else 0))
         line = (f"phase 15: config5 chunk 0 level {level}: {rays} ray slots, "
-                f"{work['node']} live; K4 {ms:.3f} ms, plain {pms:.3f} ms, "
-                f"{ops / 1e9:.4f} GFLOP")
+                f"{work['node']} live; K4 {ms:.3f} ms against its reference "
+                f"{ref_ms:.3f} ms ({ref_ms / ms:.2f}x), d_state bit-identical, "
+                f"tables within {k4_tbl_err:.2e} x scale; plain {pms:.3f} ms, "
+                f"{ops / 1e9:.4f} GFLOP ({ref_ops / 1e9:.4f} re-running the loops)")
         if spawn:
-            _, kids = wf_level(s5, state, True, tables)
             keep_n = min(2 * rays, cap)
             out = compact(kids, pid, keep_n, ws, return_src=True)
             kept = int(out[3])
@@ -940,16 +1178,21 @@ def training_phases(dev):
         return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
     k4_bound, k6_bound = bound(k4_ops, k4_bytes), bound(0, k6_bytes)
-    print(f"phase 15: config5 chunk 0, {levels} levels: K4 {k4_ms:.3f} ms (plain "
+    k4_ref_bound = bound(k4_ref_ops, k4_bytes)
+    print(f"phase 15: config5 chunk 0, {levels} levels: K4 {k4_ms:.3f} ms against "
+          f"its reference {k4_ref_ms:.3f} ms ({k4_ref_ms / k4_ms:.2f}x; plain "
           f"{k4_plain:.3f} ms), bound {k4_bound[0]:.4f} ms by {k4_bound[1]} "
           f"({k4_ops / 1e9:.3f} GFLOP at 67 TFLOP/s, {k4_bytes / 1e6:.3f} MB at "
-          f"3.35 TB/s); K6 {k6_ms:.3f} ms (plain {k6_plain:.3f} ms, zeros + "
+          f"3.35 TB/s), the reference algorithm's bound {k4_ref_bound[0]:.4f} ms "
+          f"({k4_ref_ops / 1e9:.3f} GFLOP); K6 {k6_ms:.3f} ms (plain {k6_plain:.3f} ms, zeros + "
           f"index_copy_ {k6_lib:.3f} ms), bound {k6_bound[0]:.4f} ms by bytes "
           f"({k6_bytes / 1e6:.3f} MB)")
     work_note = f"config5 chunk 0 ({chunk} camera rays), all {levels} levels"
     k4 = {"launches": l4, "max_abs_err": k4_err, "max_rel_err": k4_rel,
           "ms": k4_ms, "plain_ms": k4_plain,
-          "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "work": work_note,
+          "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "ref_ms": k4_ref_ms,
+          "ref_bound_ms": k4_ref_bound[0], "ref_bound_by": k4_ref_bound[1],
+          "ref_table_err": k4_tbl_err, "work": work_note,
           "step_ms": wf_ms, "library_ms": None}
     k6 = {"launches": l6, "max_abs_err": 0.0, "ms": k6_ms, "plain_ms": k6_plain,
           "bound_ms": k6_bound[0], "bound_by": k6_bound[1], "work": work_note,
@@ -989,20 +1232,33 @@ def main() -> int:
     name = torch.cuda.get_device_name(dev)
     print(f"phase 1: device {name} | nvidia-smi: {smi}")
 
-    # Phase 2: build, one nvcc per source, all at once.
+    # Phase 2: build, one nvcc per source, all at once (and the counting
+    # host build of the level kernel for phase 12's bound).
     kernels = (TRACE_FWD, TRACE_BWD, WF_LEVEL, WF_COMPACT, WF_LEVEL_BWD,
                WF_UNCOMPACT)
+    for k in kernels:  # a cached library has no ptxas lines to hold
+        if k.library_path().exists():
+            k.library_path().unlink()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:
+    with ThreadPoolExecutor(len(kernels) + 1) as pool:
+        counting = pool.submit(build_counting_host)
         nvcc_s = list(pool.map(lambda k: k.build(), kernels))
+        count_lib = counting.result()
     for k, s in zip(kernels, nvcc_s):
         k.function()
         print(f"phase 2: built {k.library_path().name} (nvcc {s:.2f} s)")
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
+            if ("Compiling entry" in line or "registers" in line or "spill" in line
+                    or "stack frame" in line):
                 print(f"  ptxas: {line.strip()}")
+        if k.name in BRUTE_FORCE_PTXAS:
+            got = sorted(ptxas_resources(k.build_log))
+            check(got == sorted(BRUTE_FORCE_PTXAS[k.name]),
+                  f"{k.name}'s ptxas resources changed: {got}")
+            print(f"phase 2: {k.name}'s ptxas resources are unchanged")
     print(f"phase 2: all {len(kernels)} built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{time.perf_counter() - t0:.2f} s; the counting host build of "
+          f"wf_level.cu with g++")
 
     # Phases 3 and 4: each kernel against its plain version on the card.
     ds = default_scene(device=dev)
@@ -1196,7 +1452,7 @@ def main() -> int:
                                          ("trace_bwd", bwd_bound)):
         print(f"phase 9: {label} bound {ms:.4f} ms by {by} ({ops / 1e9:.3f} "
               f"GFLOP at 67 TFLOP/s, {nbytes / 1e6:.3f} MB at 3.35 TB/s)")
-    k3, k5 = wavefront_phases(dev)
+    k3, k5 = wavefront_phases(dev, count_lib)
     k4, k6 = training_phases(dev)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 

@@ -126,13 +126,16 @@ RT_HD void hit_t_adjoint(const SceneView& sc, const GradView& G, const Ray& r,
 // the cotangents dc0 (refraction child) and dc1 (reflection child) of the
 // input states of the children it spawns, writes the cotangent of its own
 // input state to dr and adds its scene, light and background terms to G.
-RT_HD void node_adjoint(const SceneView& sc, const GradView& G, const Ray& r,
-                        int max_depth, const float* gw, const float* dc0,
-                        const float* dc1, float* dr) {
+// `q` answers the node's sphere queries (BruteForce where it is not given):
+// only their answers enter the adjoint.
+template <class Q>
+RT_HD void node_adjoint(const SceneView& sc, const Q& q, const GradView& G,
+                        const Ray& r, int max_depth, const float* gw,
+                        const float* dc0, const float* dc1, float* dr) {
   for (int f = 0; f < kStateFields; ++f) dr[f] = 0.0f;
   Node nd;
   Ray children[2];  // not needed: the walk has them
-  node_forward(sc, r, max_depth, nullptr, &nd, &children[0], &children[1]);
+  node_forward(sc, q, r, max_depth, nullptr, &nd, &children[0], &children[1]);
   const float I[3] = {r.ir, r.ig, r.ib};
   if (nd.hit < 0) {  // miss: emission = intensity * medium matte
     const float M[3] = {r.mr, r.mg, r.mb};
@@ -157,7 +160,7 @@ RT_HD void node_adjoint(const SceneView& sc, const GradView& G, const Ray& r,
     for (int c = 0; c < 3; ++c) dL[c] = gw[c] * nd.op * I[c] * mat[c];
     for (int l = 0; l < sc.nl; ++l) {
       LightTerm lt;
-      if (!light_term(sc, l, nd.hx, nd.hy, nd.hz, nx, ny, nz, &lt)) continue;
+      if (!light_term(sc, q, l, nd.hx, nd.hy, nd.hz, nx, ny, nz, &lt)) continue;
       float dw = 0.0f;
       for (int c = 0; c < 3; ++c) {
         const float col = sc.light(L_CR + c, l);
@@ -331,6 +334,12 @@ RT_HD void node_adjoint(const SceneView& sc, const GradView& G, const Ray& r,
   dr[R_DY] += nd.t * dhy;
   dr[R_DZ] += nd.t * dhz;
   hit_t_adjoint(sc, G, r, k, dhx * r.dx + dhy * r.dy + dhz * r.dz, dr);
+}
+
+RT_HD void node_adjoint(const SceneView& sc, const GradView& G, const Ray& r,
+                        int max_depth, const float* gw, const float* dc0,
+                        const float* dc1, float* dr) {
+  node_adjoint(sc, BruteForce{&sc}, G, r, max_depth, gw, dc0, dc1, dr);
 }
 
 }  // namespace rt

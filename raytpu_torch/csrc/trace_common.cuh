@@ -139,50 +139,93 @@ RT_HD int closest_hit(const SceneView& sc, const Ray& r, float* t_out) {
 // interval form of trace_pallas.py:_shadow_blocked: with a unit shadow ray
 // and C = min(sqrt(gap), 1000), a sphere blocks iff q(t) = a t^2 + b t + c
 // has a root in (eps, C): the endpoint signs differ, or both are positive
-// with a real radicand and the vertex inside the interval.
+// with a real radicand and the vertex inside the interval.  ShadowRay holds
+// what every sphere's test shares; shadow_hits is one sphere's test.
+struct ShadowRay {
+  float dx, dy, dz, a, cc, c2, two_a_eps, two_a_c;
+};
+
+RT_HD ShadowRay shadow_ray(float px, float py, float pz, float lx, float ly,
+                           float lz, float gap) {
+  ShadowRay s;
+  const float inv = inv_sqrt(gap == 0.0f ? 1.0f : gap);
+  s.dx = (lx - px) * inv;
+  s.dy = (ly - py) * inv;
+  s.dz = (lz - pz) * inv;
+  s.a = s.dx * s.dx + s.dy * s.dy + s.dz * s.dz;
+  s.cc = fminf(sqrtf(gap), kMaxDist);
+  s.c2 = s.cc * s.cc;
+  s.two_a_eps = 2.0f * s.a * kEpsRay;
+  s.two_a_c = 2.0f * s.a * s.cc;
+  return s;
+}
+
+RT_HD bool shadow_hits(const SceneView& sc, const ShadowRay& s, float px,
+                       float py, float pz, int i) {
+  const float ex = px - sc.sph(S_PX, i);
+  const float ey = py - sc.sph(S_PY, i);
+  const float ez = pz - sc.sph(S_PZ, i);
+  const float rad = sc.sph(S_RAD, i);
+  const float b = 2.0f * (s.dx * ex + s.dy * ey + s.dz * ez);
+  const float c = (ex * ex + ey * ey + ez * ez) - rad * rad;
+  const float q_eps = (s.a * kEpsRay + b) * kEpsRay + c;
+  const float q_c = s.a * s.c2 + b * s.cc + c;
+  const bool neg_eps = q_eps < 0.0f;
+  const bool neg_c = q_c < 0.0f;
+  const float radicand = b * b - 4.0f * s.a * c;
+  const float mb = -b;
+  const bool vertex_in = (mb > s.two_a_eps) && (mb < s.two_a_c);
+  return (neg_eps != neg_c) ||
+         (!neg_eps && !neg_c && radicand >= 0.0f && vertex_in);
+}
+
 RT_HD bool shadow_blocked(const SceneView& sc, float px, float py, float pz,
                           float lx, float ly, float lz, float gap) {
-  const float inv = inv_sqrt(gap == 0.0f ? 1.0f : gap);
-  const float dx = (lx - px) * inv, dy = (ly - py) * inv, dz = (lz - pz) * inv;
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float cc = fminf(sqrtf(gap), kMaxDist);
-  const float c2 = cc * cc;
-  const float two_a_eps = 2.0f * a * kEpsRay;
-  const float two_a_c = 2.0f * a * cc;
+  const ShadowRay s = shadow_ray(px, py, pz, lx, ly, lz, gap);
   for (int i = 0; i < sc.n; ++i) {
-    const float ex = px - sc.sph(S_PX, i);
-    const float ey = py - sc.sph(S_PY, i);
-    const float ez = pz - sc.sph(S_PZ, i);
-    const float rad = sc.sph(S_RAD, i);
-    const float b = 2.0f * (dx * ex + dy * ey + dz * ez);
-    const float c = (ex * ex + ey * ey + ez * ez) - rad * rad;
-    const float q_eps = (a * kEpsRay + b) * kEpsRay + c;
-    const float q_c = a * c2 + b * cc + c;
-    const bool neg_eps = q_eps < 0.0f;
-    const bool neg_c = q_c < 0.0f;
-    const float radicand = b * b - 4.0f * a * c;
-    const float mb = -b;
-    const bool vertex_in = (mb > two_a_eps) && (mb < two_a_c);
-    if ((neg_eps != neg_c) ||
-        (!neg_eps && !neg_c && radicand >= 0.0f && vertex_in)) {
-      return true;
-    }
+    if (shadow_hits(sc, s, px, py, pz, i)) return true;
   }
   return false;
 }
 
 // primaryContainer (raytracer.h:245-270): first sphere whose
 // (radius + 1e-6)-ball holds the point, else -1.
+RT_HD bool contains(const SceneView& sc, float px, float py, float pz, int i) {
+  const float ex = px - sc.sph(S_PX, i);
+  const float ey = py - sc.sph(S_PY, i);
+  const float ez = pz - sc.sph(S_PZ, i);
+  const float r = sc.sph(S_RAD, i) + kEpsContain;
+  return ex * ex + ey * ey + ez * ez <= r * r;
+}
+
 RT_HD int container(const SceneView& sc, float px, float py, float pz) {
   for (int i = 0; i < sc.n; ++i) {
-    const float ex = px - sc.sph(S_PX, i);
-    const float ey = py - sc.sph(S_PY, i);
-    const float ez = pz - sc.sph(S_PZ, i);
-    const float r = sc.sph(S_RAD, i) + kEpsContain;
-    if (ex * ex + ey * ey + ez * ez <= r * r) return i;
+    if (contains(sc, px, py, pz, i)) return i;
   }
   return -1;
 }
+
+// The three sphere queries a node asks, as a policy of the node code:
+// closest(r, &t) (closest_hit), blocked(l, hit point, light, gap)
+// (shadow_blocked, for light l) and contain(point) (container).  A policy
+// chooses which spheres it tests, never how: every test is the functions
+// above, in the exact o - centre form (reassociating it flips 2.5-3.6% of
+// pixels, BASELINE.md:582-596).  BruteForce is the loops over every
+// sphere; the dense kernels (K1, K2) use it.  bvh.cuh and wf_level_bwd.cu
+// hold the others.
+struct BruteForce {
+  const SceneView* sc;
+  RT_HD int closest(const Ray& r, float* t) const {
+    return closest_hit(*sc, r, t);
+  }
+  RT_HD bool blocked(int, float px, float py, float pz, float lx, float ly,
+                     float lz, float gap) const {
+    return shadow_blocked(*sc, px, py, pz, lx, ly, lz, gap);
+  }
+  RT_HD int contain(float px, float py, float pz) const {
+    return container(*sc, px, py, pz);
+  }
+};
 
 // polarisedReflection (raytracer.h:370-403), float32.
 RT_HD float fresnel(float n1, float n2, float c1, float c2) {
@@ -202,8 +245,10 @@ struct LightTerm {
   float ex, ey, ez, gap, inv, incidence, w;
 };
 
-RT_HD bool light_term(const SceneView& sc, int l, float hx, float hy,
-                      float hz, float nx, float ny, float nz, LightTerm* t) {
+template <class Q>
+RT_HD bool light_term(const SceneView& sc, const Q& q, int l, float hx,
+                      float hy, float hz, float nx, float ny, float nz,
+                      LightTerm* t) {
   const float lx = sc.light(L_PX, l), ly = sc.light(L_PY, l),
               lz = sc.light(L_PZ, l);
   t->ex = lx - hx;
@@ -213,7 +258,7 @@ RT_HD bool light_term(const SceneView& sc, int l, float hx, float hy,
   t->inv = inv_sqrt(t->gap == 0.0f ? 1.0f : t->gap);
   t->incidence = nx * t->ex * t->inv + ny * t->ey * t->inv + nz * t->ez * t->inv;
   if (!(t->incidence > 0.0f)) return false;
-  if (shadow_blocked(sc, hx, hy, hz, lx, ly, lz, t->gap)) return false;
+  if (q.blocked(l, hx, hy, hz, lx, ly, lz, t->gap)) return false;
   t->w = t->incidence / (t->gap == 0.0f ? 1.0f : t->gap);
   return true;
 }
@@ -254,13 +299,15 @@ struct Node {
 // forward kernel points these at its stack's free slot and at `r` itself,
 // as its own loop did before the node was shared: returned in Node, the
 // children cost it 8 more registers (72, by ptxas for sm_90a).
-// *refraction may alias r: it is written last.
-RT_HD void node_forward(const SceneView& sc, const Ray& r, int max_depth,
-                        float* emission, Node* nd, Ray* reflection,
-                        Ray* refraction) {
+// *refraction may alias r: it is written last.  `q` answers the node's
+// sphere queries (BruteForce where it is not given).
+template <class Q>
+RT_HD void node_forward(const SceneView& sc, const Q& q, const Ray& r,
+                        int max_depth, float* emission, Node* nd,
+                        Ray* reflection, Ray* refraction) {
   nd->live = nd->spawn = nd->refr = nd->refl = false;
   float t;
-  nd->hit = closest_hit(sc, r, &t);
+  nd->hit = q.closest(r, &t);
   const bool sig = r.ir >= kMinSig || r.ig >= kMinSig || r.ib >= kMinSig;
   if (nd->hit < 0) {
     // A miss paints the medium whatever the ray's significance.
@@ -301,7 +348,7 @@ RT_HD void node_forward(const SceneView& sc, const Ray& r, int max_depth,
     float lr = 0.0f, lg = 0.0f, lb = 0.0f;
     for (int l = 0; l < sc.nl; ++l) {
       LightTerm lt;
-      if (!light_term(sc, l, hx, hy, hz, nx, ny, nz, &lt)) continue;
+      if (!light_term(sc, q, l, hx, hy, hz, nx, ny, nz, &lt)) continue;
       lr += lt.w * sc.light(L_CR, l);
       lg += lt.w * sc.light(L_CG, l);
       lb += lt.w * sc.light(L_CB, l);
@@ -320,7 +367,7 @@ RT_HD void node_forward(const SceneView& sc, const Ray& r, int max_depth,
   nd->dot_dn = dot_dn;
   nd->cos1 = cos1;
   nd->sin1 = sin1;
-  const int tgt = container(sc, hx + kShift * r.dx, hy + kShift * r.dy,
+  const int tgt = q.contain(hx + kShift * r.dx, hy + kShift * r.dy,
                             hz + kShift * r.dz);
   const bool t_in = tgt >= 0;
   const float tior = t_in ? sc.sph(S_IOR, tgt) : sc.bg[B_IOR];
@@ -420,6 +467,13 @@ RT_HD void node_forward(const SceneView& sc, const Ray& r, int max_depth,
     *refraction = Ray{hx, hy, hz, rdx, rdy, rdz, r_ir, r_ig, r_ib,
                       nd->tmr, nd->tmg, nd->tmb, tior, tmop, r.level + 1};
   }
+}
+
+RT_HD void node_forward(const SceneView& sc, const Ray& r, int max_depth,
+                        float* emission, Node* nd, Ray* reflection,
+                        Ray* refraction) {
+  node_forward(sc, BruteForce{&sc}, r, max_depth, emission, nd, reflection,
+               refraction);
 }
 
 // Pixel g's position on the image plane (raytrace_kernel.cl:908-930).

@@ -13,7 +13,9 @@ camera rays and each chunk level by level:
     path medium cotangents take in the backward).  It writes 3 emission
     channels per ray and, on a spawning level, ray i's refraction child at
     2i and its reflection child at 2i+1, ten exact zeros where a child is
-    not spawned;
+    not spawned.  Each ray culls the spheres it tests through the frame's
+    BVH (kernels/bvh.py, built once per frame beside scene_tables); on the
+    training path it also writes the node's selections `sel`;
   * K5, `compact` (csrc/wf_compact.cu; it replaces wavefront.py:
     _make_cursor_copy_kernel and the sorts around it): a stable prefix-sum
     stream compaction of the live children (intensity not all exactly
@@ -33,7 +35,8 @@ strided copy into the frame, scene_tables' concatenation):
   * K4, `wf_level_bwd` (csrc/wf_level_bwd.cu; it replaces wavefront.py:
     _make_wf_bwd_kernel): one level's backward, the hand-written node
     adjoint of trace_adjoint.cuh over the same state, with the medium's
-    cotangents routed through the index's gather into the scene table;
+    cotangents routed through the index's gather into the scene table and
+    the node's sphere queries answered from K3's saved `sel`;
   * K6, `uncompact` (csrc/wf_uncompact.cu; it replaces wavefront.py:
     _make_inverse_cursor_kernel and the inverse co-sorts around it): the
     compaction's transpose, the slot cotangents back to the child columns
@@ -67,6 +70,7 @@ import math
 import torch
 
 from raytpu_torch.config import RenderConfig
+from raytpu_torch.kernels.bvh import Bvh, build_bvh
 from raytpu_torch.kernels.trace_cuda import (BG_ROWS, LIGHT_ROWS, SCENE_ROWS,
                                              SMEM_BYTES, CudaKernel,
                                              _bwd_shared_bytes, _check_depth,
@@ -90,9 +94,13 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 WF_LEVEL = CudaKernel(
     "wf_level", "wf_level.cu", "raytpu_wf_level",
-    # scene, n, lights, nl, bg, state, rays, spawn, em, children, device,
-    # stream
-    [_p, _i, _p, _i, _p, _p, _ll, _i, _p, _p, _i, _p])
+    # scene, n, lights, nl, bg, boxes, order, n_leaves, state, rays, spawn,
+    # em, children, sel, device, stream
+    [_p, _i, _p, _i, _p, _p, _p, _i, _p, _ll, _i, _p, _p, _p, _i, _p],
+    # the brute-force reference instance: scene, n, lights, nl, bg, state,
+    # rays, spawn, em, children, sel, device, stream
+    entries={"raytpu_wf_level_ref": [_p, _i, _p, _i, _p, _p, _ll, _i, _p, _p,
+                                     _p, _i, _p]})
 
 WF_COMPACT = CudaKernel(
     "wf_compact", "wf_compact.cu", "raytpu_wf_count",
@@ -103,11 +111,13 @@ WF_COMPACT = CudaKernel(
     entries={"raytpu_wf_scatter": [_p, _ll, _p, _p, _p, _ll, _i, _p, _p, _p,
                                    _i, _p]})
 
+# scene, n, lights, nl, bg, state, rays, spawn, em_ct, ch_ct, sel, d_state,
+# gout, shared_grad, device, stream
+_LEVEL_BWD_ARGS = [_p, _i, _p, _i, _p, _p, _ll, _i, _p, _p, _p, _p, _p, _i, _i, _p]
 WF_LEVEL_BWD = CudaKernel(
-    "wf_level_bwd", "wf_level_bwd.cu", "raytpu_wf_level_bwd",
-    # scene, n, lights, nl, bg, state, rays, spawn, em_ct, ch_ct, d_state,
-    # gout, shared_grad, device, stream
-    [_p, _i, _p, _i, _p, _p, _ll, _i, _p, _p, _p, _p, _i, _i, _p])
+    "wf_level_bwd", "wf_level_bwd.cu", "raytpu_wf_level_bwd", _LEVEL_BWD_ARGS,
+    # the reference instance re-running the brute-force queries (sel unread)
+    entries={"raytpu_wf_level_bwd_ref": _LEVEL_BWD_ARGS})
 
 WF_UNCOMPACT = CudaKernel(
     "wf_uncompact", "wf_uncompact.cu", "raytpu_wf_uncompact",
@@ -165,34 +175,82 @@ def wf_level_torch(scene, state, spawn: bool):
     return em, (torch.cat(kids, dim=1) if spawn else None)
 
 
-def wf_level(scene, state, spawn: bool, tables=None):
-    """One bounce level over the (10, R) state: (emissions (3, R),
-    children (10, 2R) or None).  On a CUDA scene this launches K3 (or
-    raises); on a CPU scene it runs the plain version.  `tables` are the
-    scene's scene_tables, if the caller has them already."""
-    device = _cuda_device(scene, "wf_level")
-    if device.type == "cpu":
-        _check_state(state, N_STATE, device, "the ray state")
-        return wf_level_torch(scene, state, spawn)
-    _check_scene(scene, device)
-    _check_state(state, N_STATE, device, "the ray state")
-    rays = state.shape[1]
+def sel_rows(n_lights: int) -> int:
+    """Rows of the selections K3 saves for K4: the hit sphere, the container
+    and ceil(L / 32) words of lit-light bits."""
+    return 2 + -(-n_lights // 32)
+
+
+def _level_outputs(scene, state, spawn: bool, return_sel: bool):
+    rays, device = state.shape[1], state.device
     em = torch.empty((3, rays), dtype=torch.float32, device=device)
     children = (torch.empty((N_STATE, 2 * rays), dtype=torch.float32,
                             device=device) if spawn else None)
+    sel = (torch.empty((sel_rows(scene.lights.count), rays), dtype=torch.int32,
+                       device=device) if return_sel else None)
+    return em, children, sel
+
+
+def _level_result(em, children, sel, return_sel: bool):
+    return (em, children, sel) if return_sel else (em, children)
+
+
+def wf_level(scene, state, spawn: bool, tables=None, bvh: Bvh | None = None,
+             return_sel: bool = False):
+    """One bounce level over the (10, R) state: (emissions (3, R),
+    children (10, 2R) or None), and with `return_sel` also the node's
+    selections sel ((2 + ceil(L/32), R) int32: the hit sphere, the
+    container where the node spawned, the lit-light bits; None on the CPU,
+    whose plain version needs none).  On a CUDA scene this launches K3 (or
+    raises); on a CPU scene it runs the plain version.  `tables` are the
+    scene's scene_tables and `bvh` its build_bvh, if the caller has them
+    already."""
+    device = _cuda_device(scene, "wf_level")
+    if device.type == "cpu":
+        _check_state(state, N_STATE, device, "the ray state")
+        return _level_result(*wf_level_torch(scene, state, spawn), None,
+                             return_sel)
+    _check_scene(scene, device)
+    _check_state(state, N_STATE, device, "the ray state")
+    em, children, sel = _level_outputs(scene, state, spawn, return_sel)
+    rays = state.shape[1]
     if rays == 0:
-        return em, children
+        return _level_result(em, children, sel, return_sel)
     spheres_tbl, lights_tbl, bg_tbl = tables or scene_tables(scene)
+    bvh = bvh or build_bvh(spheres_tbl, lights_tbl)
     fn = WF_LEVEL.function()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(spheres_tbl.data_ptr(), scene.spheres.count, lights_tbl.data_ptr(),
-             scene.lights.count, bg_tbl.data_ptr(), state.data_ptr(), rays,
-             int(spawn), em.data_ptr(),
-             children.data_ptr() if spawn else None, device.index or 0, stream)
+             scene.lights.count, bg_tbl.data_ptr(), bvh.boxes.data_ptr(),
+             bvh.order.data_ptr(), bvh.n_leaves, state.data_ptr(), rays,
+             int(spawn), em.data_ptr(), children.data_ptr() if spawn else None,
+             sel.data_ptr() if return_sel else None, device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"wf_level launch failed: CUDA error {err}")
     WF_LEVEL.launches += 1
-    return em, children
+    return _level_result(em, children, sel, return_sel)
+
+
+def wf_level_reference(scene, state, spawn: bool, tables=None,
+                       return_sel: bool = False):
+    """wf_level through K3's reference instance (the brute-force loops over
+    every sphere) on a CUDA scene: what the BVH instance is held to bit for
+    bit and timed against.  Not counted in WF_LEVEL.launches, and never on
+    the main path."""
+    device = state.device
+    _check_scene(scene, device)
+    _check_state(state, N_STATE, device, "the ray state")
+    em, children, sel = _level_outputs(scene, state, spawn, return_sel)
+    spheres_tbl, lights_tbl, bg_tbl = tables or scene_tables(scene)
+    err = WF_LEVEL.function("raytpu_wf_level_ref")(
+        spheres_tbl.data_ptr(), scene.spheres.count, lights_tbl.data_ptr(),
+        scene.lights.count, bg_tbl.data_ptr(), state.data_ptr(), state.shape[1],
+        int(spawn), em.data_ptr(), children.data_ptr() if spawn else None,
+        sel.data_ptr() if return_sel else None, device.index or 0,
+        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wf_level_ref launch failed: CUDA error {err}")
+    return _level_result(em, children, sel, return_sel)
 
 
 # --------------------------------------------------------------------------
@@ -233,14 +291,56 @@ def wf_level_bwd_torch(scene, state, em_ct, ch_ct, spawn: bool):
     return (d_state, *scene_tables(scene_from_leaves(total)))
 
 
+def _check_sel(sel, scene, rays: int, device):
+    rows = sel_rows(scene.lights.count)
+    if sel is None:
+        raise ValueError("wf_level_bwd on a CUDA scene needs sel, the "
+                         "selections wf_level(..., return_sel=True) saved for "
+                         "this state")
+    if tuple(sel.shape) != (rows, rays) or sel.dtype != torch.int32:
+        raise ValueError(f"sel is {sel.dtype} {tuple(sel.shape)}, expected "
+                         f"int32 ({rows}, {rays})")
+    if sel.device != device or not sel.is_contiguous():
+        raise ValueError(f"sel must be contiguous on {device}")
+
+
+def _level_bwd_launch(entry, scene, state, em_ct, ch_ct, spawn, tables,
+                      need_state, sel):
+    """Launch `entry` of K4's library (the reference entry does not read
+    sel).  Returns (d_state or None, the three tables)."""
+    device = state.device
+    rays = state.shape[1]
+    n, nl = scene.spheres.count, scene.lights.count
+    ns, nls = SCENE_ROWS * n, LIGHT_ROWS * nl
+    gout = torch.zeros(ns + nls + BG_ROWS, dtype=torch.float32, device=device)
+    d_state = torch.empty_like(state) if need_state else None
+    if rays > 0:
+        spheres_tbl, lights_tbl, bg_tbl = tables or scene_tables(scene)
+        err = WF_LEVEL_BWD.function(entry)(
+            spheres_tbl.data_ptr(), n, lights_tbl.data_ptr(), nl,
+            bg_tbl.data_ptr(), state.data_ptr(), rays, int(spawn),
+            em_ct.data_ptr(), ch_ct.data_ptr() if spawn else None,
+            sel.data_ptr() if sel is not None else None,
+            d_state.data_ptr() if need_state else None, gout.data_ptr(),
+            int(_bwd_shared_bytes(n, nl) <= SMEM_BYTES), device.index or 0,
+            torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    return (d_state, gout[:ns].view(SCENE_ROWS, n),
+            gout[ns:ns + nls].view(LIGHT_ROWS, nl), gout[ns + nls:])
+
+
 def wf_level_bwd(scene, state, em_ct, ch_ct, spawn: bool, tables=None,
-                 need_state: bool = True):
+                 need_state: bool = True, sel=None):
     """The backward of wf_level(scene, state, spawn) for the cotangents
     em_ct (3, R) of its emissions and ch_ct (10, 2R) of its children (None
     when not `spawn`): (d_state (10, R) or None without `need_state`,
     d_spheres (12, N), d_lights (6, L), d_bg (5,)).  On a CUDA scene this
-    launches K4 (or raises); on a CPU scene it runs the plain version.
-    The kernel sums with atomics, so the last bits vary between runs."""
+    launches K4, which reads `sel`, the selections
+    wf_level(..., return_sel=True) wrote for this state, and raises without
+    them; on a CPU scene it runs the plain version, which needs no sel.
+    The kernel sums with atomics, so the tables' last bits vary between
+    runs."""
     device = _cuda_device(scene, "wf_level_bwd")
     _check_state(state, N_STATE, device, "the ray state")
     rays = state.shape[1]
@@ -251,25 +351,26 @@ def wf_level_bwd(scene, state, em_ct, ch_ct, spawn: bool, tables=None,
         d_state, *grads = wf_level_bwd_torch(scene, state, em_ct, ch_ct, spawn)
         return (d_state if need_state else None, *grads)
     _check_scene(scene, device)
-    n, nl = scene.spheres.count, scene.lights.count
-    ns, nls = SCENE_ROWS * n, LIGHT_ROWS * nl
-    gout = torch.zeros(ns + nls + BG_ROWS, dtype=torch.float32, device=device)
-    d_state = torch.empty_like(state) if need_state else None
+    _check_sel(sel, scene, rays, device)
+    out = _level_bwd_launch("raytpu_wf_level_bwd", scene, state, em_ct, ch_ct,
+                            spawn, tables, need_state, sel)
     if rays > 0:
-        spheres_tbl, lights_tbl, bg_tbl = tables or scene_tables(scene)
-        fn = WF_LEVEL_BWD.function()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(spheres_tbl.data_ptr(), n, lights_tbl.data_ptr(), nl,
-                 bg_tbl.data_ptr(), state.data_ptr(), rays, int(spawn),
-                 em_ct.data_ptr(), ch_ct.data_ptr() if spawn else None,
-                 d_state.data_ptr() if need_state else None, gout.data_ptr(),
-                 int(_bwd_shared_bytes(n, nl) <= SMEM_BYTES),
-                 device.index or 0, stream)
-        if err != 0:
-            raise RuntimeError(f"wf_level_bwd launch failed: CUDA error {err}")
         WF_LEVEL_BWD.launches += 1
-    return (d_state, gout[:ns].view(SCENE_ROWS, n),
-            gout[ns:ns + nls].view(LIGHT_ROWS, nl), gout[ns + nls:])
+    return out
+
+
+def wf_level_bwd_reference(scene, state, em_ct, ch_ct, spawn: bool,
+                           tables=None, need_state: bool = True):
+    """wf_level_bwd through K4's reference instance, which re-runs the
+    brute-force sphere queries instead of reading sel, on a CUDA scene: what
+    K4 is held to and timed against.  Not counted in WF_LEVEL_BWD.launches,
+    and never on the main path."""
+    device = state.device
+    _check_scene(scene, device)
+    _check_state(state, N_STATE, device, "the ray state")
+    _check_state(em_ct, 3, device, "the emission cotangent", state.shape[1])
+    return _level_bwd_launch("raytpu_wf_level_bwd_ref", scene, state, em_ct,
+                             ch_ct, spawn, tables, need_state, None)
 
 
 # --------------------------------------------------------------------------
@@ -418,15 +519,16 @@ class WfLevelFn(torch.autograd.Function):
     (wf_level_bwd), the counterpart of raytpu's _wf_level_ad.  The tensor
     inputs are the three scene tables and the state, so that autograd
     routes the table gradients through scene_tables to the scene leaves.
-    It saves its inputs only; the tables are the frame's, shared by every
-    level."""
+    It saves its inputs and K3's selections (12 bytes a ray at L <= 32);
+    the tables and the BVH are the frame's, shared by every level."""
 
     @staticmethod
-    def forward(ctx, scene, spawn, spheres_tbl, lights_tbl, bg_tbl, state):
+    def forward(ctx, scene, spawn, bvh, spheres_tbl, lights_tbl, bg_tbl, state):
         ctx.scene, ctx.spawn = scene, spawn
+        em, children, ctx.sel = wf_level(scene, state, spawn,
+                                         (spheres_tbl, lights_tbl, bg_tbl), bvh,
+                                         return_sel=True)
         ctx.save_for_backward(spheres_tbl, lights_tbl, bg_tbl, state)
-        em, children = wf_level(scene, state, spawn,
-                                (spheres_tbl, lights_tbl, bg_tbl))
         return (em, children) if spawn else em
 
     @staticmethod
@@ -435,8 +537,8 @@ class WfLevelFn(torch.autograd.Function):
         d_state, *grads = wf_level_bwd(
             ctx.scene, state, em_ct.contiguous(),
             ch_ct.contiguous() if ctx.spawn else None, ctx.spawn,
-            tuple(tables), need_state=ctx.needs_input_grad[5])
-        return (None, None, *grads, d_state)
+            tuple(tables), need_state=ctx.needs_input_grad[6], sel=ctx.sel)
+        return (None, None, None, *grads, d_state)
 
 
 class CompactFn(torch.autograd.Function):
@@ -534,7 +636,7 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
     device = _cuda_device(scene, "render_pixels_wavefront")
     ad = torch.is_grad_enabled() and any(t.requires_grad
                                          for t in scene_leaves(scene))
-    tables = None
+    tables = bvh = None
     if device.type == "cuda":
         # Every kernel of the port takes max_depth <= kMaxDepth; the
         # wavefront keeps that bound so that every backend takes the same
@@ -542,6 +644,7 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
         _check_depth(cfg)
         _check_scene(scene, device)
         tables = scene_tables(scene)
+        bvh = build_bvh(tables[0], tables[1])
     elif ad:
         tables = scene_tables(scene)
     npix = cfg.num_pixels if count is None else int(count)
@@ -560,10 +663,10 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
         for level in range(cfg.max_depth + 1):
             spawn = level < cfg.max_depth
             if ad:
-                out = WfLevelFn.apply(scene, spawn, *tables, state)
+                out = WfLevelFn.apply(scene, spawn, bvh, *tables, state)
                 em, children = out if spawn else (out, None)
             else:
-                em, children = wf_level(scene, state, spawn, tables)
+                em, children = wf_level(scene, state, spawn, tables, bvh)
             if level == 0:
                 accw = em.reshape(3, ws, spp).sum(dim=2)
             else:

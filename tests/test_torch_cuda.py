@@ -15,7 +15,10 @@ forwards differ by more than 1e-5*scale (a flipped grazing branch has a
 near-singular gradient).  The wavefront's level backward is held per ray
 and per table under the same contract; its compaction transpose bit for
 bit; its whole gradient against the kernel pair's under
-tests/test_wavefront.py:196-219's (every leaf within 2e-3*scale).
+tests/test_wavefront.py:196-219's (every leaf within 2e-3*scale).  The
+level kernel through its BVH and the level backward from the saved
+selections are held to their brute-force reference instances bit for bit
+(the backward's atomically summed tables within 1e-5 x scale).
 """
 
 import dataclasses
@@ -245,8 +248,8 @@ def masked_level_cotangents(scene, state, spawn, seed):
     children, U(-1, 1) with a zero medium-index row, both zeroed on the
     rays whose forwards (K3 against its plain version: emissions at
     1e-5*scale, children at rtol 1e-5) differ; returns (em_ct, ch_ct,
-    the rays kept)."""
-    em, kids = wavefront.wf_level(scene, state, spawn)
+    the rays kept, K3's selections)."""
+    em, kids, sel = wavefront.wf_level(scene, state, spawn, return_sel=True)
     pem, pkids = wavefront.wf_level_torch(scene, state, spawn)
     bad = (em - pem).abs().amax(dim=0) > 1e-5 * pem.abs().max()
     if spawn:
@@ -264,7 +267,7 @@ def masked_level_cotangents(scene, state, spawn, seed):
                              device=state.device)
         ch_ct[9] = 0.0
         ch_ct[:, bad.repeat_interleave(2)] = 0.0
-    return em_ct, ch_ct, ~bad
+    return em_ct, ch_ct, ~bad, sel
 
 
 def assert_level_grads(got, want, keep, state):
@@ -295,15 +298,15 @@ def _level_two_states(scene, dev):
 def test_level_backward_kernel_matches_plain_version(dev, spawn):
     scene = random_scene(32, seed=3, device=dev)
     for i, state in enumerate(_level_two_states(scene, dev)):
-        em_ct, ch_ct, keep = masked_level_cotangents(scene, state, spawn, seed=i)
+        em_ct, ch_ct, keep, sel = masked_level_cotangents(scene, state, spawn, seed=i)
         before = wavefront.WF_LEVEL_BWD.launches
-        got = wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, spawn)
+        got = wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, spawn, sel=sel)
         torch.cuda.synchronize()
         assert wavefront.WF_LEVEL_BWD.launches == before + 1
         want = wavefront.wf_level_bwd_torch(scene, state, em_ct, ch_ct, spawn)
         assert_level_grads(got, want, keep, state)
         none = wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, spawn,
-                                      need_state=False)
+                                      need_state=False, sel=sel)
         assert none[0] is None
 
 
@@ -316,8 +319,8 @@ def test_level_backward_global_table_instance(dev):
     chunk, _, _, n = wavefront.wavefront_sizes(cfg, 1 << 13, 2)
     state, _ = wavefront.chunk_camera_state(cfg, chunk, n, 0, cfg.num_pixels,
                                             device=dev)
-    em_ct, ch_ct, keep = masked_level_cotangents(scene, state, True, seed=3)
-    got = wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, True)
+    em_ct, ch_ct, keep, sel = masked_level_cotangents(scene, state, True, seed=3)
+    got = wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, True, sel=sel)
     torch.cuda.synchronize()
     assert_level_grads(got, wavefront.wf_level_bwd_torch(scene, state, em_ct, ch_ct, True),
                        keep, state)
@@ -403,7 +406,12 @@ def test_wavefront_backward_raises_on_what_it_does_not_take(dev):
         wavefront.wf_level_bwd(scene, state, em_ct, ch_ct[:, :rays].contiguous(), True)
     with pytest.raises(ValueError):   # state on the CPU, scene on the card
         wavefront.wf_level_bwd(scene, state.cpu(), em_ct, ch_ct, True)
-    _, kids = wavefront.wf_level(scene, state, True)
+    _, kids, sel = wavefront.wf_level(scene, state, True, return_sel=True)
+    with pytest.raises(ValueError):   # no selections
+        wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, True)
+    with pytest.raises(ValueError):   # selections of another state
+        wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, True,
+                               sel=sel[:, :-1].contiguous())
     src = wavefront.compact(kids, pid, cap, ws, return_src=True)[4]
     d = torch.zeros(10, cap, device=dev)
     with pytest.raises(TypeError):
@@ -427,3 +435,47 @@ def test_training_auto_takes_the_measured_crossover(dev):
     assert resolve_train_backend("auto", scene, small) == "cuda"
     # K2 cannot stage 3000 spheres' tables: the wavefront at any size.
     assert resolve_train_backend("auto", random_scene(3000, device=dev), small) == "wavefront"
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("n_spheres", [256, 3000])
+def test_level_kernel_through_the_tree_matches_its_reference(dev, n_spheres):
+    """K3 through the BVH (staged in shared memory at 256 spheres, read
+    through the read-only cache at 3000) against its brute-force reference
+    instance, bit for bit: emissions, children, sel; over two levels."""
+    scene = random_scene(n_spheres, seed=3, device=dev)
+    cfg = RenderConfig(width=64, height=32, max_depth=2, alias_factor=2)
+    chunk, ws, cap, n = wavefront.wavefront_sizes(cfg, 4096, 2)
+    state, pid = wavefront.chunk_camera_state(cfg, chunk, n, 0, cfg.num_pixels,
+                                              device=dev)
+    for _ in range(2):
+        before = wavefront.WF_LEVEL.launches
+        got = wavefront.wf_level(scene, state, True, return_sel=True)
+        want = wavefront.wf_level_reference(scene, state, True, return_sel=True)
+        torch.cuda.synchronize()
+        assert wavefront.WF_LEVEL.launches == before + 1  # the reference is not counted
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b))
+        assert (got[2][0] >= 0).any()
+        state, pid = wavefront.compact(got[1], pid, min(2 * state.shape[1], cap), ws)[:2]
+
+
+@pytest.mark.parametrize("spawn", [True, False])
+def test_level_backward_from_sel_matches_its_reference(dev, spawn):
+    """K4 from K3's selections against its reference instance, which re-runs
+    the brute-force queries: d_state bit for bit, the tables within 1e-5 x
+    scale (atomics' order)."""
+    scene = random_scene(32, seed=3, device=dev)
+    for i, state in enumerate(_level_two_states(scene, dev)):
+        em_ct, ch_ct, _, sel = masked_level_cotangents(scene, state, spawn, seed=i)
+        before = wavefront.WF_LEVEL_BWD.launches
+        got = wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, spawn, sel=sel)
+        want = wavefront.wf_level_bwd_reference(scene, state, em_ct, ch_ct, spawn)
+        torch.cuda.synchronize()
+        assert wavefront.WF_LEVEL_BWD.launches == before + 1
+        assert torch.equal(_bits(got[0]), _bits(want[0]))
+        for a, b in zip(got[1:], want[1:]):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())

@@ -159,7 +159,9 @@ def host(tmp_path_factory):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.raytpu_wf_level_host.argtypes = [p, i, p, i, p, p, ll, i, p, p]
+    # scene, n, lights, nl, bg, boxes, order, n_leaves, state, rays, spawn,
+    # em, children, sel (null boxes: the brute-force loops)
+    lib.raytpu_wf_level_host.argtypes = [p, i, p, i, p, p, p, i, p, ll, i, p, p, p]
     return lib
 
 
@@ -173,8 +175,8 @@ def test_level_kernel_body_matches_plain_version(host, name):
     kids = torch.full((N_STATE, 2 * rays), np.nan)
     host.raytpu_wf_level_host(spheres.data_ptr(), ts.spheres.count,
                               lights.data_ptr(), ts.lights.count, bg.data_ptr(),
-                              st.data_ptr(), rays, 1, em.data_ptr(),
-                              kids.data_ptr())
+                              None, None, 0, st.data_ptr(), rays, 1, em.data_ptr(),
+                              kids.data_ptr(), None)
     want_em, want_kids = wf_level_torch(ts, st, True)
     max_em, max_kids = HOST_CASES[name]
     assert torch.isfinite(em).all() and torch.isfinite(kids).all()

@@ -200,10 +200,14 @@ def host(tmp_path_factory):
                         "-shared", "-fPIC", "-o", str(path), str(CSRC / f"{name}.cu")],
                        check=True, capture_output=True, text=True)
         libs[name] = ctypes.CDLL(str(path))
-    libs["wf_level"].raytpu_wf_level_host.argtypes = [_P, _I, _P, _I, _P, _P, _LL,
-                                                      _I, _P, _P]
+    # scene, n, lights, nl, bg, boxes, order, n_leaves, state, rays, spawn,
+    # em, children, sel (null boxes: the brute-force loops)
+    libs["wf_level"].raytpu_wf_level_host.argtypes = [_P, _I, _P, _I, _P, _P, _P, _I,
+                                                      _P, _LL, _I, _P, _P, _P]
+    # scene, n, lights, nl, bg, state, rays, spawn, em_ct, ch_ct, sel,
+    # d_state, gout (null sel: the brute-force queries)
     libs["wf_level_bwd"].raytpu_wf_level_bwd_host.argtypes = [
-        _P, _I, _P, _I, _P, _P, _LL, _I, _P, _P, _P, _P]
+        _P, _I, _P, _I, _P, _P, _LL, _I, _P, _P, _P, _P, _P]
     libs["wf_uncompact"].raytpu_wf_uncompact_host.argtypes = [_P, _LL, _P, _LL, _P]
     return libs
 
@@ -225,8 +229,9 @@ def test_level_backward_kernel_body_matches_plain_version(host, name, spawn):
             ts.lights.count, tables[2].data_ptr())
     em = torch.zeros(3, rays)
     kids = torch.zeros(N_STATE, 2 * rays)
-    host["wf_level"].raytpu_wf_level_host(*ptrs, state.data_ptr(), rays, 1,
-                                          em.data_ptr(), kids.data_ptr())
+    host["wf_level"].raytpu_wf_level_host(*ptrs, None, None, 0, state.data_ptr(),
+                                          rays, 1, em.data_ptr(), kids.data_ptr(),
+                                          None)
     pem, pkids = wf_level_torch(ts, state, True)
     bad = (rays_off(em.numpy(), pem.numpy(), 0)
            | rays_off(kids.numpy(), pkids.numpy(), 1e-6).reshape(rays, 2).any(axis=1))
@@ -236,7 +241,8 @@ def test_level_backward_kernel_body_matches_plain_version(host, name, spawn):
     gout = torch.zeros(12 * ts.spheres.count + 6 * ts.lights.count + 5)
     host["wf_level_bwd"].raytpu_wf_level_bwd_host(
         *ptrs, state.data_ptr(), rays, int(spawn), em_ct.data_ptr(),
-        ch_ct.data_ptr() if spawn else None, d_state.data_ptr(), gout.data_ptr())
+        ch_ct.data_ptr() if spawn else None, None, d_state.data_ptr(),
+        gout.data_ptr())
     n, nl = ts.spheres.count, ts.lights.count
     got = (d_state, gout[:12 * n].view(12, n), gout[12 * n:12 * n + 6 * nl].view(6, nl),
            gout[12 * n + 6 * nl:])
