@@ -10,8 +10,9 @@
 // shadow visibility, significance, which refraction root) are constants of
 // the derivative; values flow through the winning sphere's root, the
 // normal, the matte sum over lit lights, Fresnel and the children's states.
-// Gradients are added through GradView, with atomics on the device and
-// plain adds on the host (g++ builds, for the CPU tests).
+// Gradients are added through a gradient view: GradView, with atomics on
+// the device and plain adds on the host (g++ builds, for the CPU tests), or
+// LaneGrad, a table private to one thread.
 
 #pragma once
 
@@ -39,6 +40,26 @@ struct GradView {
   }
   RT_HD void back(int row, float v) const { grad_add(&bg[row], v); }
   // A medium field of sphere `tgt`, or of the background where tgt < 0.
+  RT_HD void medium(int srow, int brow, int tgt, float v) const {
+    if (tgt >= 0) sph(srow, tgt, v); else back(brow, v);
+  }
+};
+
+// A gradient table private to one thread, laid out as GradView's: entry k
+// at base[k * stride], added without atomics.  The dense backward keeps
+// one per thread of a block in shared memory, interleaved (stride = the
+// block's size), so that no two lanes touch one address or one bank.
+struct LaneGrad {
+  float* base;
+  int stride, n, nl;
+  RT_HD void add(int k, float v) const { base[k * stride] += v; }
+  RT_HD void sph(int row, int i, float v) const { add(row * n + i, v); }
+  RT_HD void light(int row, int i, float v) const {
+    add(SCENE_ROWS * n + row * nl + i, v);
+  }
+  RT_HD void back(int row, float v) const {
+    add(SCENE_ROWS * n + LIGHT_ROWS * nl + row, v);
+  }
   RT_HD void medium(int srow, int brow, int tgt, float v) const {
     if (tgt >= 0) sph(srow, tgt, v); else back(brow, v);
   }
@@ -85,7 +106,8 @@ RT_HD void fresnel_adjoint(float n1, float n2, float c1, float c2, float d,
 // Adjoint of the winning root t of sphere k along r (trace_pallas.py:152-167,
 // with _inv2a's a == 0 guard): adds to dr the cotangents of the origin and
 // direction, and to G those of sphere k's centre and radius.
-RT_HD void hit_t_adjoint(const SceneView& sc, const GradView& G, const Ray& r,
+template <class GV>
+RT_HD void hit_t_adjoint(const SceneView& sc, const GV& G, const Ray& r,
                          int k, float dt, float* dr) {
   const float a = dir_sq(r);
   const float inv2a = inv_two_a(a);
@@ -127,9 +149,9 @@ RT_HD void hit_t_adjoint(const SceneView& sc, const GradView& G, const Ray& r,
 // input states of the children it spawns, writes the cotangent of its own
 // input state to dr and adds its scene, light and background terms to G.
 // `q` answers the node's sphere queries (BruteForce where it is not given):
-// only their answers enter the adjoint.
-template <class Q>
-RT_HD void node_adjoint(const SceneView& sc, const Q& q, const GradView& G,
+// only their answers enter the adjoint.  G is a gradient view.
+template <class Q, class GV>
+RT_HD void node_adjoint(const SceneView& sc, const Q& q, const GV& G,
                         const Ray& r, int max_depth, const float* gw,
                         const float* dc0, const float* dc1, float* dr) {
   for (int f = 0; f < kStateFields; ++f) dr[f] = 0.0f;

@@ -211,8 +211,8 @@ RT_HD int container(const SceneView& sc, float px, float py, float pz) {
 // chooses which spheres it tests, never how: every test is the functions
 // above, in the exact o - centre form (reassociating it flips 2.5-3.6% of
 // pixels, BASELINE.md:582-596).  BruteForce is the loops over every
-// sphere; the dense kernels (K1, K2) use it.  bvh.cuh and wf_level_bwd.cu
-// hold the others.
+// sphere; K1 and K2's reference instance use it.  Saved and Recording
+// below, and bvh.cuh, hold the others.
 struct BruteForce {
   const SceneView* sc;
   RT_HD int closest(const Ray& r, float* t) const {
@@ -225,6 +225,69 @@ struct BruteForce {
   RT_HD int contain(float px, float py, float pz) const {
     return container(*sc, px, py, pz);
   }
+};
+
+// The answers one node's closest-hit and container queries gave: the hit
+// sphere (-1 on a miss) and the container of its refraction probe (-1 for
+// the background, or where the node did not spawn).
+struct Selection {
+  int hit, tgt;
+};
+
+// The policy q, recording its closest-hit and container answers into
+// *rec, which the caller sets to {-1, -1} first.
+template <class Q>
+struct Recording {
+  Q q;
+  Selection* rec;
+  RT_HD int closest(const Ray& r, float* t) const {
+    rec->hit = q.closest(r, t);
+    return rec->hit;
+  }
+  RT_HD bool blocked(int l, float px, float py, float pz, float lx, float ly,
+                     float lz, float gap) const {
+    return q.blocked(l, px, py, pz, lx, ly, lz, gap);
+  }
+  RT_HD int contain(float px, float py, float pz) const {
+    rec->tgt = q.contain(px, py, pz);
+    return rec->tgt;
+  }
+};
+
+// A node's sphere queries answered from its saved selections: no sphere is
+// tested for the closest hit but the hit one, whose root gives t (the
+// arithmetic the forward's running minimum kept, so t is bit-identical);
+// the container is the saved one.  With kLitBits a light is lit where its
+// bit in the level kernel's saved words is set (the level backward's, K4);
+// without, the shadow tests run over every sphere again (the dense
+// backward's, K2, whose selections hold no bits; bits is unused).  Every
+// branch decision is then the forward's.  The bit words are plain members:
+// held in a member struct, nvcc 12.8 compiled K4's read of them as a
+// local-memory load of the global address, an illegal address on the card
+// (PERF.md).
+template <bool kLitBits>
+struct Saved {
+  const SceneView* sc;
+  int hit, tgt;
+  const int* bits;  // the ray's first bit word; word w at bits[w * stride]
+  long long stride;
+  RT_HD int closest(const Ray& r, float* t) const {
+    if (hit < 0) {
+      *t = kMaxDist;
+      return -1;
+    }
+    const float a = dir_sq(r);
+    SphereRoot s;
+    sphere_root(*sc, r, a, inv_two_a(a), hit, &s);
+    *t = s.t;
+    return hit;
+  }
+  RT_HD bool blocked(int l, float px, float py, float pz, float lx, float ly,
+                     float lz, float gap) const {
+    if (kLitBits) return !((bits[(l >> 5) * stride] >> (l & 31)) & 1);
+    return shadow_blocked(*sc, px, py, pz, lx, ly, lz, gap);
+  }
+  RT_HD int contain(float, float, float) const { return tgt; }
 };
 
 // polarisedReflection (raytracer.h:370-403), float32.

@@ -29,13 +29,18 @@
 //                      the pid (index mod n_slots): in range for the
 //                      caller's scatter, and spread so that its atomics on
 //                      the zeros they add do not pile onto one address.
+//                      On the training path it also writes dst[j], the
+//                      slot child j went to, or -1 for a dead or dropped
+//                      child: the backward (wf_uncompact.cu) gathers each
+//                      child's cotangent from there.
 //
 // What bounds it on this card: bytes.  It does no arithmetic worth the
 // name; it reads the three intensity fields of every child twice and the
 // other seven fields of the live ones once, and writes 44 bytes per kept
-// slot.  The design keeps the reads coalesced (thread j reads element j of
-// each field) and never moves a dead child's other fields.  It moves values
-// and never rounds them, so it equals the plain version bit for bit.
+// slot (and 4 per child with dst).  The design keeps the reads coalesced
+// (thread j reads element j of each field) and never moves a dead child's
+// other fields.  It moves values and never rounds them, so it equals the
+// plain version bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -76,7 +81,7 @@ wf_scatter_kernel(const float* __restrict__ children, long long kids,
                   const long long* __restrict__ starts,
                   const long long* __restrict__ total, long long cap,
                   int n_slots, float* __restrict__ out,
-                  int* __restrict__ out_pid, int* __restrict__ src) {
+                  int* __restrict__ out_pid, int* __restrict__ dst) {
   __shared__ int warp_off[kBlock / 32];
   const long long j = (long long)blockIdx.x * kBlock + threadIdx.x;
   const bool live = live_child(children, kids, j);
@@ -94,22 +99,24 @@ wf_scatter_kernel(const float* __restrict__ children, long long kids,
     warp_off[lane] = v - own;
   }
   __syncthreads();
+  long long dest = -1;
   if (live) {
-    const long long dest = starts[blockIdx.x] + warp_off[warp] +
-                           __popc(ballot & ((1u << lane) - 1u));
+    dest = starts[blockIdx.x] + warp_off[warp] +
+           __popc(ballot & ((1u << lane) - 1u));
     if (dest < cap) {
       for (int f = 0; f < kFields; ++f) {
         out[f * cap + dest] = children[f * kids + j];
       }
       out_pid[dest] = pid[j >> 1];
-      if (src) src[dest] = (int)j;
+    } else {
+      dest = -1;  // dropped past the capacity
     }
   }
+  if (dst && j < kids) dst[j] = (int)dest;
   const long long kept = *total < cap ? *total : cap;
   if (j >= kept && j < cap) {
     for (int f = 0; f < kFields; ++f) out[f * cap + j] = 0.0f;
     out_pid[j] = (int)(j % n_slots);
-    if (src) src[j] = -1;
   }
 }
 
@@ -128,18 +135,19 @@ extern "C" int raytpu_wf_count(const float* children, long long kids,
 }
 
 // The compacted state (10, cap) and pids (cap,), from the exclusive block
-// cursors `starts` and the live total `total` (one int64 on the device).
+// cursors `starts` and the live total `total` (one int64 on the device);
+// dst (kids,) or null (not wanted).
 extern "C" int raytpu_wf_scatter(const float* children, long long kids,
                                  const int* pid, const long long* starts,
                                  const long long* total, long long cap,
                                  int n_slots, float* out, int* out_pid,
-                                 int* src, int device, void* stream) {
+                                 int* dst, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const long long span = kids > cap ? kids : cap;
   if (span <= 0) return (int)cudaSuccess;
   const long long blocks = (span + kBlock - 1) / kBlock;
   wf_scatter_kernel<<<(unsigned)blocks, kBlock, 0, (cudaStream_t)stream>>>(
-      children, kids, pid, starts, total, cap, n_slots, out, out_pid, src);
+      children, kids, pid, starts, total, cap, n_slots, out, out_pid, dst);
   return (int)cudaGetLastError();
 }

@@ -40,7 +40,10 @@
 //   * The scene, lights and background are staged once per block in shared
 //     memory, and so are the tree's boxes and leaf order where all of it
 //     fits the 227 KB a block may use; above that (large N) the tree is
-//     read through the read-only cache (a second template instance).
+//     read through the read-only cache (a second template instance), and
+//     where the scene table alone outgrows shared memory (more than ~4800
+//     spheres, or ~9600 lights) the table too is read in place from
+//     global memory (a third), so the wavefront takes scenes of any size.
 //   * Between levels the rays are compacted, so a warp's lanes are live
 //     rays of neighbouring pixels.  A dead ray (intensity exactly zero, the
 //     compaction's zero tail) reads 12 bytes, writes zeros and exits.
@@ -162,7 +165,8 @@ constexpr int kBlock = 128;
 constexpr size_t kSmemMax = 232448;  // shared memory one block may use
 
 // kMode 0: the brute-force loops (the reference instance); 1: the BVH
-// staged in shared memory; 2: the BVH read through the read-only cache.
+// staged in shared memory; 2: the BVH read through the read-only cache;
+// 3: the BVH and the scene table read in place from global memory.
 template <int kMode>
 __global__ void __launch_bounds__(kBlock)
 wf_level_kernel(const float* __restrict__ scene, int n_spheres,
@@ -177,10 +181,12 @@ wf_level_kernel(const float* __restrict__ scene, int n_spheres,
   const int n_scene = SCENE_ROWS * n_spheres;
   const int n_light = LIGHT_ROWS * n_lights;
   const int n_tbl = n_scene + n_light + BG_ROWS;
-  for (int k = threadIdx.x; k < n_tbl; k += blockDim.x) {
-    smem[k] = k < n_scene ? scene[k]
-              : k < n_scene + n_light ? lights[k - n_scene]
-                                      : bg[k - n_scene - n_light];
+  if (kMode != 3) {
+    for (int k = threadIdx.x; k < n_tbl; k += blockDim.x) {
+      smem[k] = k < n_scene ? scene[k]
+                : k < n_scene + n_light ? lights[k - n_scene]
+                                        : bg[k - n_scene - n_light];
+    }
   }
   const int nodes = 2 * n_leaves;
   const int n_box = BOX_ROWS * nodes;
@@ -190,18 +196,20 @@ wf_level_kernel(const float* __restrict__ scene, int n_spheres,
     for (int k = threadIdx.x; k < n_box; k += blockDim.x) sbox[k] = boxes[k];
     for (int k = threadIdx.x; k < n_spheres; k += blockDim.x) sorder[k] = order[k];
   }
-  __syncthreads();
+  if (kMode != 3) __syncthreads();
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rays) return;
-  const SceneView sc{smem, smem + n_scene, smem + n_scene + n_light,
-                     n_spheres, n_lights};
+  const SceneView sc = kMode == 3
+      ? SceneView{scene, lights, bg, n_spheres, n_lights}
+      : SceneView{smem, smem + n_scene, smem + n_scene + n_light, n_spheres,
+                  n_lights};
   if (kMode == 0) {
     level_ray(sc, BruteForce{&sc}, state, rays, i, spawn != 0, em, children,
               sel);
   } else {
     const float* b = kMode == 1 ? smem + n_tbl : boxes;
     const int* o = kMode == 1 ? reinterpret_cast<const int*>(b + n_box) : order;
-    const BvhQuery q{&sc, BvhView{b, o, nodes, n_leaves, n_spheres, kMode == 2}};
+    const BvhQuery q{&sc, BvhView{b, o, nodes, n_leaves, n_spheres, kMode >= 2}};
     level_ray(sc, q, state, rays, i, spawn != 0, em, children, sel);
   }
 }
@@ -252,8 +260,13 @@ extern "C" int raytpu_wf_level(const float* scene, int n_spheres,
                      n_leaves, state, rays, spawn, em, children, sel,
                      tbl + tree, stream);
   }
-  return launch<2>(scene, n_spheres, lights, n_lights, bg, boxes, order,
-                   n_leaves, state, rays, spawn, em, children, sel, tbl,
+  if (tbl <= kSmemMax) {
+    return launch<2>(scene, n_spheres, lights, n_lights, bg, boxes, order,
+                     n_leaves, state, rays, spawn, em, children, sel, tbl,
+                     stream);
+  }
+  return launch<3>(scene, n_spheres, lights, n_lights, bg, boxes, order,
+                   n_leaves, state, rays, spawn, em, children, sel, 0,
                    stream);
 }
 

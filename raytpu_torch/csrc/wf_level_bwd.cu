@@ -18,7 +18,7 @@
 // regathered from the scene table by its index, and node_forward runs at
 // level 0 with max_depth = spawn.  Its sphere queries are not run again:
 // the level kernel saved their answers in `sel` (the hit sphere, the
-// container, one bit per lit light), and the Saved policy below returns
+// container, one bit per lit light), and the Saved policy returns
 // them, with the hit's t recomputed by sphere_root of that one sphere (the
 // arithmetic the forward's running minimum kept, so t is bit-identical).
 // So every branch decision matches the forward bit for bit and no loop
@@ -43,8 +43,10 @@
 //     table when both fit the 227 KB a block may use, 8 (12N + 6L + 5)
 //     bytes (shared atomics, then one global atomic per nonzero entry per
 //     block).  Above that the same kernel adds straight into the global
-//     table, so K4 takes every scene the level kernel takes; the wrapper
-//     picks the instance from N and L.
+//     table, and where the scene table alone outgrows shared memory it
+//     reads the table in place from global memory too, so K4 takes every
+//     scene the level kernel takes; the entry picks the instance from N
+//     and L.
 //   * A block whose rays are all dead (the zero tail past a compaction's
 //     kept prefix) writes its zeros and exits before it stages anything.
 //   * Occupancy over registers: uncapped, the adjoint leaves 4 blocks of
@@ -82,33 +84,11 @@ RT_HD void zero_state(float* __restrict__ d_state, long long rays,
 }
 
 // The sphere queries of ray i answered from the level kernel's saved
-// selections: no sphere is tested but the hit one, whose root gives t.
-struct Saved {
-  const SceneView* sc;
-  int hit, tgt;
-  const int* bits;  // the ray's first bit word; word w at bits[w * stride]
-  long long stride;
-  RT_HD int closest(const Ray& r, float* t) const {
-    if (hit < 0) {
-      *t = kMaxDist;
-      return -1;
-    }
-    const float a = dir_sq(r);
-    SphereRoot s;
-    sphere_root(*sc, r, a, inv_two_a(a), hit, &s);
-    *t = s.t;
-    return hit;
-  }
-  RT_HD bool blocked(int l, float, float, float, float, float, float,
-                     float) const {
-    return !((bits[(l >> 5) * stride] >> (l & 31)) & 1);
-  }
-  RT_HD int contain(float, float, float) const { return tgt; }
-};
-
-RT_HD Saved saved_query(const SceneView& sc, const int* __restrict__ sel,
-                        long long rays, long long i) {
-  return Saved{&sc, sel[i], sel[rays + i], sel + 2 * rays + i, rays};
+// selections (trace_common.cuh's Saved): no sphere is tested but the hit
+// one, whose root gives t.
+RT_HD Saved<true> saved_query(const SceneView& sc, const int* __restrict__ sel,
+                              long long rays, long long i) {
+  return Saved<true>{&sc, sel[i], sel[rays + i], sel + 2 * rays + i, rays};
 }
 
 // Ray i's cotangents: its state's to d_state (if not null), its terms to G.
@@ -176,8 +156,9 @@ constexpr int kBlock = 128;
 constexpr int kMinBlocks = 8;
 
 // kSaved: the queries from sel (the main instance); else the brute-force
-// loops (the reference instance, sel unused).
-template <bool kSharedGrad, bool kSaved>
+// loops (the reference instance, sel unused).  kSharedScene: the scene
+// table staged in shared memory, else read in place.
+template <bool kSharedScene, bool kSharedGrad, bool kSaved>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 wf_level_bwd_kernel(const float* __restrict__ scene, int n_spheres,
                     const float* __restrict__ lights, int n_lights,
@@ -199,16 +180,20 @@ wf_level_bwd_kernel(const float* __restrict__ scene, int n_spheres,
   const int n_light = LIGHT_ROWS * n_lights;
   const int n_tbl = n_scene + n_light + BG_ROWS;
   float* gsm = kSharedGrad ? smem + n_tbl : gout;
-  for (int k = threadIdx.x; k < n_tbl; k += blockDim.x) {
-    smem[k] = k < n_scene ? scene[k]
-              : k < n_scene + n_light ? lights[k - n_scene]
-                                      : bg[k - n_scene - n_light];
-    if (kSharedGrad) gsm[k] = 0.0f;
+  if (kSharedScene) {
+    for (int k = threadIdx.x; k < n_tbl; k += blockDim.x) {
+      smem[k] = k < n_scene ? scene[k]
+                : k < n_scene + n_light ? lights[k - n_scene]
+                                        : bg[k - n_scene - n_light];
+      if (kSharedGrad) gsm[k] = 0.0f;
+    }
+    __syncthreads();
   }
-  __syncthreads();
   if (i < rays) {
-    const SceneView sc{smem, smem + n_scene, smem + n_scene + n_light,
-                       n_spheres, n_lights};
+    const SceneView sc = kSharedScene
+        ? SceneView{smem, smem + n_scene, smem + n_scene + n_light, n_spheres,
+                    n_lights}
+        : SceneView{scene, lights, bg, n_spheres, n_lights};
     const GradView gv{gsm, gsm + n_scene, gsm + n_scene + n_light, n_spheres,
                       n_lights};
     if (kSaved) {
@@ -228,42 +213,50 @@ wf_level_bwd_kernel(const float* __restrict__ scene, int n_spheres,
   }
 }
 
-template <bool kSharedGrad, bool kSaved>
+constexpr size_t kSmemMax = 232448;  // shared memory one block may use
+
+template <bool kSharedScene, bool kSharedGrad, bool kSaved>
 int launch(const float* scene, int n_spheres, const float* lights,
            int n_lights, const float* bg, const float* state, long long rays,
            int spawn, const float* em_ct, const float* ch_ct, const int* sel,
-           float* d_state, float* gout, void* stream) {
-  const size_t tbl = sizeof(float) *
-      (size_t)(SCENE_ROWS * n_spheres + LIGHT_ROWS * n_lights + BG_ROWS);
-  const size_t smem = kSharedGrad ? 2 * tbl : tbl;
+           float* d_state, float* gout, size_t smem, void* stream) {
+  auto kernel = wf_level_bwd_kernel<kSharedScene, kSharedGrad, kSaved>;
   cudaError_t err = cudaFuncSetAttribute(
-      wf_level_bwd_kernel<kSharedGrad, kSaved>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (rays + kBlock - 1) / kBlock;
-  wf_level_bwd_kernel<kSharedGrad, kSaved><<<(unsigned)blocks, kBlock, smem,
-                                             (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)blocks, kBlock, smem, (cudaStream_t)stream>>>(
       scene, n_spheres, lights, n_lights, bg, state, rays, spawn, em_ct, ch_ct,
       sel, d_state, gout);
   return (int)cudaGetLastError();
 }
 
+// The instance for the scene's size: the scene table and the block's
+// gradient table in shared memory where both fit, else the scene table
+// alone where it fits, else neither.
 template <bool kSaved>
 int run(const float* scene, int n_spheres, const float* lights, int n_lights,
         const float* bg, const float* state, long long rays, int spawn,
         const float* em_ct, const float* ch_ct, const int* sel,
-        float* d_state, float* gout, int shared_grad, int device,
-        void* stream) {
+        float* d_state, float* gout, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (rays <= 0) return (int)cudaSuccess;
-  return shared_grad
-             ? launch<true, kSaved>(scene, n_spheres, lights, n_lights, bg,
-                                    state, rays, spawn, em_ct, ch_ct, sel,
-                                    d_state, gout, stream)
-             : launch<false, kSaved>(scene, n_spheres, lights, n_lights, bg,
-                                     state, rays, spawn, em_ct, ch_ct, sel,
-                                     d_state, gout, stream);
+  const size_t tbl = sizeof(float) *
+      (size_t)(SCENE_ROWS * n_spheres + LIGHT_ROWS * n_lights + BG_ROWS);
+  if (2 * tbl <= kSmemMax) {
+    return launch<true, true, kSaved>(scene, n_spheres, lights, n_lights, bg,
+                                      state, rays, spawn, em_ct, ch_ct, sel,
+                                      d_state, gout, 2 * tbl, stream);
+  }
+  if (tbl <= kSmemMax) {
+    return launch<true, false, kSaved>(scene, n_spheres, lights, n_lights, bg,
+                                       state, rays, spawn, em_ct, ch_ct, sel,
+                                       d_state, gout, tbl, stream);
+  }
+  return launch<false, false, kSaved>(scene, n_spheres, lights, n_lights, bg,
+                                      state, rays, spawn, em_ct, ch_ct, sel,
+                                      d_state, gout, 0, stream);
 }
 
 }  // namespace
@@ -272,19 +265,15 @@ int run(const float* scene, int n_spheres, const float* lights, int n_lights,
 // (2 + ceil(L/32), R) int32, the level kernel's selections for this state;
 // d_state (10, R) or null (no state cotangent wanted); gout the zeroed
 // (12N + 6L + 5) gradient table [scene | lights | background].
-// shared_grad picks the instance with the block's gradient table in shared
-// memory.
 extern "C" int raytpu_wf_level_bwd(const float* scene, int n_spheres,
                                    const float* lights, int n_lights,
                                    const float* bg, const float* state,
                                    long long rays, int spawn,
                                    const float* em_ct, const float* ch_ct,
                                    const int* sel, float* d_state,
-                                   float* gout, int shared_grad, int device,
-                                   void* stream) {
+                                   float* gout, int device, void* stream) {
   return run<true>(scene, n_spheres, lights, n_lights, bg, state, rays, spawn,
-                   em_ct, ch_ct, sel, d_state, gout, shared_grad, device,
-                   stream);
+                   em_ct, ch_ct, sel, d_state, gout, device, stream);
 }
 
 // The reference instance: the same entry re-running the brute-force
@@ -295,11 +284,10 @@ extern "C" int raytpu_wf_level_bwd_ref(const float* scene, int n_spheres,
                                        long long rays, int spawn,
                                        const float* em_ct, const float* ch_ct,
                                        const int*, float* d_state,
-                                       float* gout, int shared_grad,
-                                       int device, void* stream) {
+                                       float* gout, int device, void* stream) {
   return run<false>(scene, n_spheres, lights, n_lights, bg, state, rays,
-                    spawn, em_ct, ch_ct, nullptr, d_state, gout, shared_grad,
-                    device, stream);
+                    spawn, em_ct, ch_ct, nullptr, d_state, gout, device,
+                    stream);
 }
 
 #else

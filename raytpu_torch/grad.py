@@ -15,11 +15,15 @@ Backends, as resolve_train_backend resolves them:
                   the drop counter (on_drop="raise" by default), and
                   fit_scene climbs the capacity ladder instead.
   * "torch"     — torch.autograd through the eager tracer, on any device.
-  * "auto"      — on a CUDA scene the wavefront where the backward kernel
-                  cannot take the scene (its shared-memory bound) or the
-                  training crossover measured on the card says so (frames
-                  of at least 640x480 3x3 camera rays, render._wf_wins_train),
-                  else "cuda"; "torch" on the CPU.
+  * "auto"      — on a CUDA scene the wavefront where the kernel pair
+                  cannot take the scene (a depth above MAX_DEPTH, more than
+                  MAX_SPHERES spheres or MAX_LIGHTS lights, tables beyond
+                  the backward's shared memory) or the training crossover
+                  measured on the card says so (frames of at least 640x480
+                  3x3 camera rays and N x depth >= 256,
+                  render._wf_wins_train), else "cuda";
+                  "torch" on the CPU, and "torch" for a pixel subset `gid`
+                  (the whole-frame kernels do not take one).
 
 Non-differentiable events are handled as in raytpu: the closest-hit,
 container, shadow and significance selections are constants of the
@@ -35,7 +39,7 @@ import torch
 
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels.trace_cuda import (SMEM_BYTES, _bwd_shared_bytes,
-                                             render_pixels_cuda_ad)
+                                             dense_takes, render_pixels_cuda_ad)
 from raytpu_torch.kernels.wavefront import render_pixels_wavefront
 from raytpu_torch.render import (WF_AUTO_CHUNK_TRAIN, _report_drops,
                                  _warn_escalate, _wf_auto_trials,
@@ -49,14 +53,21 @@ from raytpu_torch.trace import render_pixels
 WF_TRAIN_CAPACITY = 2.0
 
 
-def resolve_train_backend(backend: str, scene, cfg: RenderConfig) -> str:
+def resolve_train_backend(backend: str, scene, cfg: RenderConfig,
+                          gid=None) -> str:
     """The training backend for `scene` at `cfg`: "auto" on a CUDA scene is
-    the wavefront where the backward kernel cannot stage the scene (8 (12N
-    + 6L + 5) bytes of shared memory above SMEM_BYTES) or where the
-    measured training crossover says so, else "cuda"."""
+    the wavefront where the kernel pair does not take the scene (a depth
+    above MAX_DEPTH, more than MAX_SPHERES spheres or MAX_LIGHTS lights, or
+    8 (12N + 6L + 5) bytes of shared memory above SMEM_BYTES for the
+    backward kernel) or where the measured training crossover says so,
+    else "cuda".  With a pixel subset `gid`, "auto" is "torch": the
+    kernels and the wavefront differentiate whole frames."""
+    if backend == "auto" and gid is not None:
+        return "torch"
     if backend == "auto" and scene.device.type == "cuda":
         n, nl = scene.spheres.count, scene.lights.count
-        if _bwd_shared_bytes(n, nl) > SMEM_BYTES or _wf_wins_train(cfg):
+        if (not dense_takes(scene, cfg) or _bwd_shared_bytes(n, nl) > SMEM_BYTES
+                or _wf_wins_train(n, cfg)):
             return "wavefront"
         return "cuda"
     return resolve_backend(backend, scene.device)
@@ -68,7 +79,7 @@ def _render_ad(scene, cfg: RenderConfig, gid, backend: str,
     The wavefront's drop counter goes to info["dropped"] (a 0-d tensor on
     the device) for the caller to enforce; without `info` it is enforced
     here, since no caller could see it."""
-    backend = resolve_train_backend(backend, scene, cfg)
+    backend = resolve_train_backend(backend, scene, cfg, gid)
     if backend in ("cuda", "wavefront"):
         if gid is not None:
             raise ValueError(f"backend {backend!r} renders the whole frame; "
@@ -93,8 +104,9 @@ def _render_ad(scene, cfg: RenderConfig, gid, backend: str,
 def image_loss(scene, cfg: RenderConfig, target_flat, gid=None,
                backend: str = "auto"):
     """Mean-squared error between the rendered pixels and a (P, 3) linear
-    target.  With `gid`, only that pixel block is rendered and compared
-    against target_flat[gid] (torch backend only)."""
+    target.  With `gid`, only those pixels are rendered and compared
+    against target_flat[gid], through the eager tracer ("auto" resolves to
+    "torch"; an explicit "cuda" or "wavefront" raises)."""
     target = target_flat if gid is None else target_flat[gid]
     err = _render_ad(scene, cfg, gid, backend) - target
     return torch.mean(err * err)
@@ -139,8 +151,8 @@ def loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,
                             on_drop: str = "raise", return_info: bool = False):
     """The MSE against a (P, 3) target and its scene gradient through the
     differentiable wavefront (raytpu.grad.loss_and_grad_wavefront): the
-    large-scene training path, no sphere bound below the level kernel's,
-    dead subtrees skipped per ray.  On a CUDA scene the levels run K3 and
+    large-scene training path, any depth and any number of spheres and
+    lights, dead subtrees skipped per ray.  On a CUDA scene the levels run K3 and
     K4 and the compactions K5 and K6; on the CPU their plain versions.
 
     `chunk_rays` and `capacity_factor` are render_pixels_wavefront's.  A

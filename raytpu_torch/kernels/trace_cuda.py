@@ -139,13 +139,15 @@ TRACE_FWD = CudaKernel(
     [_p, _i, _p, _i, _p, _p, _ll, _ll, _ll, _ll, _i, _i, _i,
      _f, _f, _f, _f, _f, _f, _f, _f, _i, _p])
 
+# scene, n, lights, nl, bg, g, gout, offset, count, stride, total_pixels,
+# width, alias, max_depth, xstep, ystep, aspect, sub, half_w, half_h, zoom,
+# weight, device, stream
+_BWD_ARGS = [_p, _i, _p, _i, _p, _p, _p, _ll, _ll, _ll, _ll, _i, _i, _i,
+             _f, _f, _f, _f, _f, _f, _f, _f, _i, _p]
 TRACE_BWD = CudaKernel(
-    "trace_bwd", "trace_bwd.cu", "raytpu_trace_bwd",
-    # scene, n, lights, nl, bg, g, gout, offset, count, stride,
-    # total_pixels, width, alias, max_depth, xstep, ystep, aspect, sub,
-    # half_w, half_h, zoom, weight, device, stream
-    [_p, _i, _p, _i, _p, _p, _p, _ll, _ll, _ll, _ll, _i, _i, _i,
-     _f, _f, _f, _f, _f, _f, _f, _f, _i, _p])
+    "trace_bwd", "trace_bwd.cu", "raytpu_trace_bwd", _BWD_ARGS,
+    # the previous design, the reference instance: the same arguments
+    entries={"raytpu_trace_bwd_ref": _BWD_ARGS})
 
 
 def scene_tables(scene):
@@ -186,16 +188,28 @@ def render_pixels_torch(scene, cfg: RenderConfig, offset: int = 0,
 
 def _check_depth(cfg: RenderConfig):
     if cfg.max_depth > MAX_DEPTH:
-        raise ValueError(f"the kernels' stack bounds max_depth at {MAX_DEPTH}, "
-                         f"got {cfg.max_depth}")
+        raise ValueError(f"the dense kernels' stack bounds max_depth at "
+                         f"{MAX_DEPTH}, got {cfg.max_depth}")
 
 
-def _check_scene(scene, device):
-    """Raise on any scene the kernels do not take."""
+def dense_takes(scene, cfg: RenderConfig) -> bool:
+    """Whether the dense kernels (K1, K2) take `scene` at `cfg`: a depth
+    their per-thread stack holds and tables their blocks can stage.  The
+    wavefront takes any depth and size."""
+    return (cfg.max_depth <= MAX_DEPTH and scene.spheres.count <= MAX_SPHERES
+            and scene.lights.count <= MAX_LIGHTS)
+
+
+def _check_scene(scene, device, bounded: bool = True):
+    """Raise on any scene the kernels do not take.  `bounded`: the bounds
+    of the kernels that stage the scene in shared memory (K1, K2 and the
+    reference instances); the wavefront's kernels (bounded=False) read a
+    table too large to stage from global memory, and take any N >= 1."""
     n, nl = scene.spheres.count, scene.lights.count
-    if not 1 <= n <= MAX_SPHERES:
-        raise ValueError(f"the kernel takes 1..{MAX_SPHERES} spheres, got {n}")
-    if not 0 <= nl <= MAX_LIGHTS:
+    if n < 1 or bounded and n > MAX_SPHERES:
+        raise ValueError(f"the kernel takes 1..{MAX_SPHERES if bounded else 'any'} "
+                         f"spheres, got {n}")
+    if nl < 0 or bounded and nl > MAX_LIGHTS:
         raise ValueError(f"the kernel takes 0..{MAX_LIGHTS} lights, got {nl}")
     shapes = {"spheres.pos": (n, 3), "spheres.radius": (n,),
               "spheres.matte": (n, 3), "spheres.gloss": (n, 3),
@@ -311,19 +325,11 @@ def grad_pixels_torch(scene, cfg: RenderConfig, g, offset: int = 0,
     return scene_from_leaves(total)
 
 
-def grad_pixels_cuda(scene, cfg: RenderConfig, g, offset: int = 0,
-                     count: int | None = None, stride: int = 1) -> Scene:
-    """The scene gradient of sum(render_pixels(pixels) * g) for the pixels
-    {offset + j*stride : j < count}, clamped to P-1, with g (count, 3).
-
-    On a CUDA scene this launches the backward kernel (or raises); on a CPU
-    scene it runs the plain version.  Every j < count is a rendered pixel and
-    takes its own g (the TPU kernel's zero-cotangent pad lanes do not exist
-    here).  The kernel sums with atomics, so the last bits vary between
-    runs."""
-    device = _cuda_device(scene, "grad_pixels_cuda")
-    if device.type == "cpu":
-        return grad_pixels_torch(scene, cfg, g, offset, count, stride)
+def _grad_launch(entry: str, scene, cfg: RenderConfig, g, offset: int,
+                 count, stride: int) -> Scene:
+    """Launch `entry` of K2's library on a CUDA scene; returns the gradient
+    Scene, or raises on what the kernel does not take."""
+    device = _cuda_device(scene, entry)
     offset, count, stride = _pixel_set(cfg, offset, count, stride)
     _check_depth(cfg)
     _check_scene(scene, device)
@@ -340,7 +346,7 @@ def grad_pixels_cuda(scene, cfg: RenderConfig, g, offset: int = 0,
         g_t = g.T.contiguous()  # (3, count), as the forward writes
         spheres_tbl, lights_tbl, bg_tbl = scene_tables(scene)
         cam = camera_constants(cfg)
-        fn = TRACE_BWD.function()
+        fn = TRACE_BWD.function(entry)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(spheres_tbl.data_ptr(), n, lights_tbl.data_ptr(), nl,
                  bg_tbl.data_ptr(), g_t.data_ptr(), gout.data_ptr(),
@@ -348,9 +354,35 @@ def grad_pixels_cuda(scene, cfg: RenderConfig, g, offset: int = 0,
                  cfg.alias_factor, cfg.max_depth, *cam, device.index or 0,
                  stream)
         if err != 0:
-            raise RuntimeError(f"trace_bwd launch failed: CUDA error {err}")
-        TRACE_BWD.launches += 1
+            raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+        if entry == TRACE_BWD.symbol:
+            TRACE_BWD.launches += 1
     return grads_from_table(gout, n, nl)
+
+
+def grad_pixels_cuda(scene, cfg: RenderConfig, g, offset: int = 0,
+                     count: int | None = None, stride: int = 1) -> Scene:
+    """The scene gradient of sum(render_pixels(pixels) * g) for the pixels
+    {offset + j*stride : j < count}, clamped to P-1, with g (count, 3).
+
+    On a CUDA scene this launches the backward kernel (or raises); on a CPU
+    scene it runs the plain version.  Every j < count is a rendered pixel and
+    takes its own g (the TPU kernel's zero-cotangent pad lanes do not exist
+    here).  The kernel sums with atomics, so the last bits vary between
+    runs."""
+    if _cuda_device(scene, "grad_pixels_cuda").type == "cpu":
+        return grad_pixels_torch(scene, cfg, g, offset, count, stride)
+    return _grad_launch(TRACE_BWD.symbol, scene, cfg, g, offset, count, stride)
+
+
+def grad_pixels_reference(scene, cfg: RenderConfig, g, offset: int = 0,
+                          count: int | None = None, stride: int = 1) -> Scene:
+    """grad_pixels_cuda through K2's reference instance, the previous design
+    (one thread per pixel, the sphere loops run again in the adjoint), on a
+    CUDA scene: what the kernel is held to and timed against.  Not counted
+    in TRACE_BWD.launches, and never on the main path."""
+    return _grad_launch("raytpu_trace_bwd_ref", scene, cfg, g, offset, count,
+                        stride)
 
 
 class RenderPixelsFn(torch.autograd.Function):

@@ -39,8 +39,9 @@ strided copy into the frame, scene_tables' concatenation):
     the node's sphere queries answered from K3's saved `sel`;
   * K6, `uncompact` (csrc/wf_uncompact.cu; it replaces wavefront.py:
     _make_inverse_cursor_kernel and the inverse co-sorts around it): the
-    compaction's transpose, the slot cotangents back to the child columns
-    K5 kept them from (its saved `src`), exact zeros everywhere else.
+    compaction's transpose, each child column's cotangent gathered from
+    the slot K5 wrote it to (its saved `dst`), exact zeros for the dead
+    and dropped children.
 
 The chunking is raytpu's, so that the same arguments give the same
 capacities and the same drop counts: pixel-major strided chunks (chunk c
@@ -59,7 +60,9 @@ compaction; streams measured neutral on the TPU; no Pallas interpreter).
 
 A scene on the CPU runs each kernel's plain version (`wf_level_torch`,
 `compact_torch`, `wf_level_bwd_torch`, `uncompact_torch`); a scene on a
-CUDA device launches the kernels or raises.
+CUDA device launches the kernels or raises.  The wavefront takes any depth
+(a level is one node, with no stack) and any number of spheres and lights:
+K3 and K4 read a scene table too large for shared memory in place.
 """
 
 from __future__ import annotations
@@ -72,10 +75,8 @@ import torch
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels.bvh import Bvh, build_bvh
 from raytpu_torch.kernels.trace_cuda import (BG_ROWS, LIGHT_ROWS, SCENE_ROWS,
-                                             SMEM_BYTES, CudaKernel,
-                                             _bwd_shared_bytes, _check_depth,
-                                             _check_scene, _cuda_device,
-                                             scene_tables)
+                                             CudaKernel, _check_scene,
+                                             _cuda_device, scene_tables)
 from raytpu_torch.ops.geometry import normalize
 from raytpu_torch.scene import scene_from_leaves, scene_leaves
 from raytpu_torch.trace import _gather_medium, _trace_level, camera_constants
@@ -106,14 +107,14 @@ WF_COMPACT = CudaKernel(
     "wf_compact", "wf_compact.cu", "raytpu_wf_count",
     # children, kids, counts, device, stream
     [_p, _ll, _p, _i, _p],
-    # children, kids, pid, starts, total, cap, n_slots, out, out_pid, src,
+    # children, kids, pid, starts, total, cap, n_slots, out, out_pid, dst,
     # device, stream
     entries={"raytpu_wf_scatter": [_p, _ll, _p, _p, _p, _ll, _i, _p, _p, _p,
                                    _i, _p]})
 
 # scene, n, lights, nl, bg, state, rays, spawn, em_ct, ch_ct, sel, d_state,
-# gout, shared_grad, device, stream
-_LEVEL_BWD_ARGS = [_p, _i, _p, _i, _p, _p, _ll, _i, _p, _p, _p, _p, _p, _i, _i, _p]
+# gout, device, stream
+_LEVEL_BWD_ARGS = [_p, _i, _p, _i, _p, _p, _ll, _i, _p, _p, _p, _p, _p, _i, _p]
 WF_LEVEL_BWD = CudaKernel(
     "wf_level_bwd", "wf_level_bwd.cu", "raytpu_wf_level_bwd", _LEVEL_BWD_ARGS,
     # the reference instance re-running the brute-force queries (sel unread)
@@ -121,7 +122,7 @@ WF_LEVEL_BWD = CudaKernel(
 
 WF_UNCOMPACT = CudaKernel(
     "wf_uncompact", "wf_uncompact.cu", "raytpu_wf_uncompact",
-    # d_state, cap, src, kids, d_children, device, stream
+    # d_state, cap, dst, kids, d_children, device, stream
     [_p, _ll, _p, _ll, _p, _i, _p])
 
 _COUNT_BLOCK = 1024  # children per block of wf_count_kernel
@@ -152,9 +153,13 @@ def wf_level_torch(scene, state, spawn: bool):
     """K3's plain version: (emissions (3, R), children (10, 2R) or None)
     for the (10, R) state, through the eager tracer's _trace_level with
     the medium regathered from its index.  Children that are not spawned
-    (zero intensity) are written as ten zeros, as the kernel writes them."""
+    (zero intensity) are written as ten zeros, as the kernel writes them.
+    Only the live rays are traced: a dead one (intensity exactly zero)
+    emits exact zeros and spawns nothing."""
     ems, kids = [], []
-    for part in torch.split(state, PLAIN_RAYS, dim=1):
+    for whole in torch.split(state, PLAIN_RAYS, dim=1):
+        idx = torch.nonzero((whole[6:9] != 0).any(dim=0)).squeeze(1)
+        part = whole[:, idx]
         rays = part.shape[1]
         mix = part[9]
         matte, ior, opacity = _gather_medium(scene.spheres, scene.bg,
@@ -162,15 +167,16 @@ def wf_level_torch(scene, state, spawn: bool):
         em, children = _trace_level(scene, part[0:3].T, part[3:6].T,
                                     part[6:9].T, matte, ior, opacity, spawn,
                                     medium_idx=mix)
-        ems.append(em.T)
+        ems.append(whole.new_zeros((3, whole.shape[1])).index_copy(1, idx, em.T))
         if spawn:
             origin, direction, intensity, index = children
             # [refraction block | reflection block] -> ray i's at 2i, 2i+1.
             fields = torch.cat([origin.T, direction.T, intensity.T, index[None]])
-            fields = fields.reshape(N_STATE, 2, rays).transpose(1, 2).reshape(
-                N_STATE, 2 * rays)
+            fields = fields.reshape(N_STATE, 2, rays).transpose(1, 2)
             alive = (fields[6:9] != 0).any(dim=0)
-            kids.append(torch.where(alive, fields, torch.zeros_like(fields)))
+            fields = torch.where(alive, fields, torch.zeros_like(fields))
+            kids.append(whole.new_zeros((N_STATE, whole.shape[1], 2)).index_copy(
+                1, idx, fields).reshape(N_STATE, 2 * whole.shape[1]))
     em = torch.cat(ems, dim=1)
     return em, (torch.cat(kids, dim=1) if spawn else None)
 
@@ -210,7 +216,7 @@ def wf_level(scene, state, spawn: bool, tables=None, bvh: Bvh | None = None,
         _check_state(state, N_STATE, device, "the ray state")
         return _level_result(*wf_level_torch(scene, state, spawn), None,
                              return_sel)
-    _check_scene(scene, device)
+    _check_scene(scene, device, bounded=False)
     _check_state(state, N_STATE, device, "the ray state")
     em, children, sel = _level_outputs(scene, state, spawn, return_sel)
     rays = state.shape[1]
@@ -235,8 +241,9 @@ def wf_level_reference(scene, state, spawn: bool, tables=None,
                        return_sel: bool = False):
     """wf_level through K3's reference instance (the brute-force loops over
     every sphere) on a CUDA scene: what the BVH instance is held to bit for
-    bit and timed against.  Not counted in WF_LEVEL.launches, and never on
-    the main path."""
+    bit and timed against.  It stages the scene in shared memory, so it
+    takes at most MAX_SPHERES spheres and MAX_LIGHTS lights.  Not counted in
+    WF_LEVEL.launches, and never on the main path."""
     device = state.device
     _check_scene(scene, device)
     _check_state(state, N_STATE, device, "the ray state")
@@ -307,7 +314,8 @@ def _check_sel(sel, scene, rays: int, device):
 def _level_bwd_launch(entry, scene, state, em_ct, ch_ct, spawn, tables,
                       need_state, sel):
     """Launch `entry` of K4's library (the reference entry does not read
-    sel).  Returns (d_state or None, the three tables)."""
+    sel); the library picks where the scene and the block's gradient table
+    live from their size.  Returns (d_state or None, the three tables)."""
     device = state.device
     rays = state.shape[1]
     n, nl = scene.spheres.count, scene.lights.count
@@ -322,8 +330,7 @@ def _level_bwd_launch(entry, scene, state, em_ct, ch_ct, spawn, tables,
             em_ct.data_ptr(), ch_ct.data_ptr() if spawn else None,
             sel.data_ptr() if sel is not None else None,
             d_state.data_ptr() if need_state else None, gout.data_ptr(),
-            int(_bwd_shared_bytes(n, nl) <= SMEM_BYTES), device.index or 0,
-            torch.cuda.current_stream(device).cuda_stream)
+            device.index or 0, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     return (d_state, gout[:ns].view(SCENE_ROWS, n),
@@ -350,7 +357,7 @@ def wf_level_bwd(scene, state, em_ct, ch_ct, spawn: bool, tables=None,
     if device.type == "cpu":
         d_state, *grads = wf_level_bwd_torch(scene, state, em_ct, ch_ct, spawn)
         return (d_state if need_state else None, *grads)
-    _check_scene(scene, device)
+    _check_scene(scene, device, bounded=False)
     _check_sel(sel, scene, rays, device)
     out = _level_bwd_launch("raytpu_wf_level_bwd", scene, state, em_ct, ch_ct,
                             spawn, tables, need_state, sel)
@@ -366,7 +373,7 @@ def wf_level_bwd_reference(scene, state, em_ct, ch_ct, spawn: bool,
     K4 is held to and timed against.  Not counted in WF_LEVEL_BWD.launches,
     and never on the main path."""
     device = state.device
-    _check_scene(scene, device)
+    _check_scene(scene, device, bounded=False)
     _check_state(state, N_STATE, device, "the ray state")
     _check_state(em_ct, 3, device, "the emission cotangent", state.shape[1])
     return _level_bwd_launch("raytpu_wf_level_bwd_ref", scene, state, em_ct,
@@ -389,15 +396,15 @@ def _check_compact(children, pid, cap: int, n_slots: int, device):
         raise ValueError(f"need cap >= 0 and n_slots >= 1, got {cap}, {n_slots}")
 
 
-def compact_torch(children, pid, cap: int, n_slots: int, return_src: bool = False):
+def compact_torch(children, pid, cap: int, n_slots: int, return_dst: bool = False):
     """K5's plain version.  children (10, 2R) with ray i's children at 2i
     and 2i+1, pid (R,) int32 the parents' slot ids.  Returns (state (10,
     cap), pid (cap,) int32, dropped, n_kept): the live children in order
     in the first n_kept slots with their parents' pids, zero state and pid
     (slot mod n_slots) after them; dropped = max(n_alive - cap, 0) and
-    n_kept = min(n_alive, cap) as 0-d int64 tensors.  With `return_src`,
-    also src (cap,) int32: the child column each kept slot holds, -1 after
-    the kept prefix (what the backward, uncompact, needs)."""
+    n_kept = min(n_alive, cap) as 0-d int64 tensors.  With `return_dst`,
+    also dst (2R,) int32: the slot each child column was written to, -1
+    for a dead or dropped child (what the backward, uncompact, needs)."""
     _check_compact(children, pid, cap, n_slots, children.device)
     device = children.device
     alive = (children[6:9] != 0).any(dim=0)
@@ -412,20 +419,19 @@ def compact_torch(children, pid, cap: int, n_slots: int, return_src: bool = Fals
     out_pid[dest] = pid.repeat_interleave(2)[keep]
     out = (state, out_pid, torch.clamp(total - cap, min=0),
            torch.clamp(total, max=cap))
-    if not return_src:
+    if not return_dst:
         return out
-    src = torch.full((cap,), -1, dtype=torch.int32, device=device)
-    src[dest] = torch.nonzero(keep).squeeze(1).to(torch.int32)
-    return (*out, src)
+    dst = torch.where(keep, rank, -1).to(torch.int32)
+    return (*out, dst)
 
 
-def compact(children, pid, cap: int, n_slots: int, return_src: bool = False):
+def compact(children, pid, cap: int, n_slots: int, return_dst: bool = False):
     """compact_torch's function; on CUDA tensors it launches K5 (a count
     kernel, a cumulative sum of the block counts, a scatter kernel) or
-    raises.  Without `return_src` the scatter writes no source index."""
+    raises.  Without `return_dst` the scatter writes no destination index."""
     device = children.device
     if device.type == "cpu":
-        return compact_torch(children, pid, cap, n_slots, return_src)
+        return compact_torch(children, pid, cap, n_slots, return_dst)
     if device.type != "cuda":
         raise ValueError(f"compact takes CPU or CUDA tensors, got {device}")
     _check_compact(children, pid, cap, n_slots, device)
@@ -448,60 +454,66 @@ def compact(children, pid, cap: int, n_slots: int, return_src: bool = False):
         total = torch.zeros((), dtype=torch.int64, device=device)
     state = torch.empty((N_STATE, cap), dtype=torch.float32, device=device)
     out_pid = torch.empty(cap, dtype=torch.int32, device=device)
-    src = torch.empty(cap, dtype=torch.int32, device=device) if return_src else None
+    dst = torch.empty(kids, dtype=torch.int32, device=device) if return_dst else None
     if max(kids, cap) > 0:
         err = WF_COMPACT.function("raytpu_wf_scatter")(
             children.data_ptr(), kids, pid.data_ptr(), starts.data_ptr(),
             total.data_ptr(), cap, n_slots, state.data_ptr(),
-            out_pid.data_ptr(), src.data_ptr() if return_src else None, dev,
+            out_pid.data_ptr(), dst.data_ptr() if return_dst else None, dev,
             stream)
         if err != 0:
             raise RuntimeError(f"wf_scatter launch failed: CUDA error {err}")
         WF_COMPACT.launches += 1
     out = (state, out_pid, torch.clamp(total - cap, min=0),
            torch.clamp(total, max=cap))
-    return (*out, src) if return_src else out
+    return (*out, dst) if return_dst else out
 
 
 # --------------------------------------------------------------------------
 # K6: the compaction's transpose.
 
 
-def _check_uncompact(d_state, src, device):
+def _check_uncompact(d_state, dst, cap: int, device):
     _check_state(d_state, N_STATE, device, "the state cotangent")
-    if src.dim() != 1 or src.shape[0] != d_state.shape[1]:
-        raise ValueError(f"src has shape {tuple(src.shape)}; the state "
-                         f"cotangent needs one per slot ({d_state.shape[1]})")
-    if src.dtype != torch.int32 or src.device != device:
-        raise TypeError(f"src must be int32 on {device}, got {src.dtype} on "
-                        f"{src.device}")
+    if d_state.shape[1] != cap:
+        raise ValueError(f"the state cotangent has {d_state.shape[1]} slots; "
+                         f"the compaction kept {cap}")
+    if dst.dim() != 1:
+        raise ValueError(f"dst has shape {tuple(dst.shape)}; it holds one "
+                         f"slot per child column")
+    if dst.dtype != torch.int32 or dst.device != device:
+        raise TypeError(f"dst must be int32 on {device}, got {dst.dtype} on "
+                        f"{dst.device}")
 
 
-def uncompact_torch(d_state, src, kids: int):
+def uncompact_torch(d_state, dst, cap: int):
     """K6's plain version: the (10, kids) cotangent of the children that
-    compact(..., return_src=True) read, for the cotangent d_state (10, cap)
-    of its state: d_children[f, src[k]] = d_state[f, k] for the 9
-    differentiable fields of every kept slot (src[k] >= 0), zero
+    compact(..., cap, return_dst=True) read, for the cotangent d_state
+    (10, cap) of its state: d_children[f, j] = d_state[f, dst[j]] for the 9
+    differentiable fields of every kept child (dst[j] >= 0), zero
     elsewhere."""
-    out = torch.zeros((N_STATE, kids), dtype=d_state.dtype, device=d_state.device)
-    keep = src >= 0
-    out[:N_DIFF, src[keep].to(torch.int64)] = d_state[:N_DIFF, keep]
+    _check_uncompact(d_state, dst, cap, d_state.device)
+    out = torch.zeros((N_STATE, dst.shape[0]), dtype=d_state.dtype,
+                      device=d_state.device)
+    keep = dst >= 0
+    out[:N_DIFF, keep] = d_state[:N_DIFF, dst[keep].to(torch.int64)]
     return out
 
 
-def uncompact(d_state, src, kids: int):
+def uncompact(d_state, dst, cap: int):
     """uncompact_torch's function; on CUDA tensors it launches K6 (one
-    kernel, no host read) or raises."""
+    gather kernel, no host read) or raises."""
     device = d_state.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"uncompact takes CPU or CUDA tensors, got {device}")
-    _check_uncompact(d_state, src, device)
     if device.type == "cpu":
-        return uncompact_torch(d_state, src, kids)
+        return uncompact_torch(d_state, dst, cap)
+    _check_uncompact(d_state, dst, cap, device)
+    kids = dst.shape[0]
     out = torch.empty((N_STATE, kids), dtype=torch.float32, device=device)
     if kids > 0:
         err = WF_UNCOMPACT.function()(
-            d_state.data_ptr(), d_state.shape[1], src.data_ptr(), kids,
+            d_state.data_ptr(), cap, dst.data_ptr(), kids,
             out.data_ptr(), device.index or 0,
             torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
@@ -542,21 +554,23 @@ class WfLevelFn(torch.autograd.Function):
 
 
 class CompactFn(torch.autograd.Function):
-    """The compaction, differentiable: forward K5 with its source index,
-    backward K6 (uncompact), the counterpart of raytpu's
-    _compact_blocked_ad.  It keeps the source index and the child count."""
+    """The compaction, differentiable: forward K5 with its destination
+    index, backward K6 (uncompact), the counterpart of raytpu's
+    _compact_blocked_ad.  It keeps the destination index, 4 bytes a
+    child, and the capacity."""
 
     @staticmethod
     def forward(ctx, children, pid, cap, n_slots):
-        state, out_pid, dropped, n_kept, src = compact(children, pid, cap,
-                                                       n_slots, return_src=True)
-        ctx.src, ctx.kids = src, children.shape[1]
+        state, out_pid, dropped, n_kept, ctx.dst = compact(
+            children, pid, cap, n_slots, return_dst=True)
+        ctx.cap = cap
         ctx.mark_non_differentiable(out_pid, dropped, n_kept)
         return state, out_pid, dropped, n_kept
 
     @staticmethod
     def backward(ctx, d_state, *_):
-        return uncompact(d_state.contiguous(), ctx.src, ctx.kids), None, None, None
+        return (uncompact(d_state.contiguous(), ctx.dst, ctx.cap), None, None,
+                None)
 
 
 # --------------------------------------------------------------------------
@@ -638,11 +652,7 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
                                          for t in scene_leaves(scene))
     tables = bvh = None
     if device.type == "cuda":
-        # Every kernel of the port takes max_depth <= kMaxDepth; the
-        # wavefront keeps that bound so that every backend takes the same
-        # configurations.
-        _check_depth(cfg)
-        _check_scene(scene, device)
+        _check_scene(scene, device, bounded=False)
         tables = scene_tables(scene)
         bvh = build_bvh(tables[0], tables[1])
     elif ad:

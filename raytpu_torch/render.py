@@ -9,10 +9,12 @@ Backends:
                   (kernels.wavefront); on the CPU their plain versions.
                   It can drop live rays past its per-level capacity, and
                   counts them.
-  * "auto"      — on a CUDA device the wavefront where the measured
-                  crossover says so (given the scene and the config),
-                  else "cuda"; "torch" on the CPU, as raytpu resolves to
-                  jnp off-TPU.
+  * "auto"      — on a CUDA device the wavefront where the dense kernel
+                  does not take the scene (a depth above its stack's
+                  MAX_DEPTH, more than MAX_SPHERES spheres or MAX_LIGHTS
+                  lights) or where the measured crossover says so (given
+                  the scene and the config), else "cuda"; "torch" on the
+                  CPU, as raytpu resolves to jnp off-TPU.
 
 The sharded driver is not ported yet (ROADMAP Queue 1 item 7).
 """
@@ -24,6 +26,7 @@ import warnings
 import torch
 
 from raytpu_torch.config import RenderConfig
+from raytpu_torch.kernels.trace_cuda import dense_takes
 from raytpu_torch.trace import render_image
 from raytpu_torch.utils.profiling import Timer
 
@@ -46,29 +49,35 @@ def _wf_wins(n_spheres: int, depth: int) -> bool:
 # The training step's crossover on the same card (chip_smoke.py phase 15,
 # PERF.md): one loss_and_grad step through the differentiable wavefront
 # (K3 + K5 forward, K4 + K6 backward, 4M-ray chunks) against the kernel
-# pair (K1 + K2), in turns.  At 640x480 3x3 the wavefront won all ten cells
-# of the forward's crossover, N x depth from 12 to 1024, at 0.12-0.76x the
-# pair's time (default scene at depth 4, config 3's frame: 0.76x), and at
-# config 5 0.18x.  Frames below 640x480 3x3 were not measured; there the
-# pair stays.
+# pair (K1 + K2, K2 a tree a camera sample), in turns, at 640x480 3x3.
+# The pair won the cells of N x depth 96 and less (N=3 d4, config 3's: the
+# wavefront 4.05-4.98x the pair's time over three reads; N=16 d4 2.60x, d6
+# 3.35x), the two at 128 split (N=64 d2 0.974x, N=32 d4 1.082x), and the
+# wavefront won 256 and more (0.14-0.45x) and config 5 (0.20x): the render
+# rule's _WF_MIN_WORK.  Frames below 640x480 3x3 were not measured; there
+# the pair stays.
 _WF_MIN_TRAIN_RAYS = 640 * 480 * 9
 
 
-def _wf_wins_train(cfg: RenderConfig) -> bool:
-    return cfg.rays_per_frame >= _WF_MIN_TRAIN_RAYS
+def _wf_wins_train(n_spheres: int, cfg: RenderConfig) -> bool:
+    return (cfg.rays_per_frame >= _WF_MIN_TRAIN_RAYS
+            and _wf_wins(n_spheres, cfg.max_depth))
 
 
 def resolve_backend(backend: str = "auto", device="cpu", scene=None,
                     cfg: RenderConfig | None = None) -> str:
     """Resolve "auto" to a concrete backend for a scene on `device`.  With
-    `scene` and `cfg`, "auto" on a CUDA device takes the measured crossover
-    between the dense kernel and the wavefront."""
+    `scene` and `cfg`, "auto" on a CUDA device is the wavefront where the
+    dense kernel does not take the scene at that depth (at any depth, 0
+    included) or where the measured crossover says so.  An explicit "cuda"
+    is kept: its kernel raises on what it does not take."""
     device = torch.device(device)
     if backend == "auto":
         if device.type != "cuda":
             return "torch"
         if (scene is not None and cfg is not None
-                and _wf_wins(scene.spheres.count, cfg.max_depth)):
+                and (not dense_takes(scene, cfg)
+                     or _wf_wins(scene.spheres.count, cfg.max_depth))):
             return "wavefront"
         return "cuda"
     if backend == "cuda" and device.type != "cuda":

@@ -10,8 +10,8 @@ directory).  For the forward (trace_fwd) the script checks that the two
 give bit-identical frames of the default scene and times frames; for the
 backward (trace_bwd) it prints the largest difference between the two
 gradients relative to their scale (the kernel sums with atomics, so the
-last bits vary) and times the training step, loss_and_grad on the fit
-example's perturbed geometry against the true scene's frame.  Each timing
+last bits vary) and times the kernel's wrapper, grad_pixels_cuda, on the
+default scene with a seeded normal cotangent on every pixel.  Each timing
 is 30 runs back to back, in the order A, B, B, A for each pair, with CUDA
 events; the script prints the card, each build's ptxas resources and
 every time.  Compare two sources only within one run: cards and power
@@ -70,19 +70,16 @@ def _workload(which: str, cfg):
         scene = default_scene(device="cuda:0")
         return (lambda: trace_cuda.render_pixels_cuda(scene, cfg),
                 lambda a, b: f"bit-identical: {torch.equal(a, b)}")
-    from raytpu_torch.examples.fit_scene import perturb
-    from raytpu_torch.grad import loss_and_grad
-
-    truth = default_scene(device="cuda:0")
-    target = trace_cuda.render_pixels_cuda(truth, cfg)
-    scene = perturb(truth, geometry=True)
+    scene = default_scene(device="cuda:0")
+    gen = torch.Generator(device="cuda:0").manual_seed(0)
+    g = torch.randn((cfg.num_pixels, 3), generator=gen, device="cuda:0")
 
     def compare(a, b):
         worst = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
-                    for x, y in zip(scene_leaves(a[1]), scene_leaves(b[1])))
+                    for x, y in zip(scene_leaves(a), scene_leaves(b)))
         return f"gradients differ by at most {worst:.3e} x scale"
 
-    return (lambda: loss_and_grad(scene, cfg, target, backend="cuda"), compare)
+    return (lambda: trace_cuda.grad_pixels_cuda(scene, cfg, g), compare)
 
 
 def main(argv=None) -> int:
@@ -112,7 +109,7 @@ def main(argv=None) -> int:
         res = [line.strip() for line in k.build_log.splitlines()
                if "registers" in line or "spill" in line]
         print(f"{label} {k.source}: {res}")
-    unit = "frame" if which == "trace_fwd" else "step"
+    unit = "frame" if which == "trace_fwd" else "call"
     for key in args.config:
         fn, compare = _workload(which, BENCH_CONFIGS[key])
         print(f"{key}: A and B {compare(_run(which, kernels['A'], fn), _run(which, kernels['B'], fn))}")

@@ -4,9 +4,12 @@ raytpu_torch/csrc/trace_bwd.cu compiled as plain C++ (g++ -x c++ -O2
 -ffp-contract=off: every multiply and add rounded on its own, as nvcc's
 -fmad=false builds the kernels) gives CPU entry points over the same
 __host__ __device__ functions the kernels run: the forward's per-pixel walk,
-the backward's per-pixel walk, and one tree node's forward and adjoint.
-They are held against torch.autograd of the plain version: the walk against
-grad_pixels_torch, one node against the eager _trace_level.
+the backward's walk (one tree a camera sample, the sphere loops once a
+node and the adjoint from the saved selections), the reference instance's
+per-pixel walk (the brute-force queries again in the adjoint), and one tree
+node's forward and adjoint.  They are held against torch.autograd of the
+plain version: the walks against grad_pixels_torch, one node against the
+eager _trace_level; and the backward's walk against the reference's.
 
 Contract: as tests/test_torch_grad.py.  The cotangent is zeroed on the
 pixels (or rays) whose forward values differ by more than 1e-5*scale, at
@@ -50,6 +53,7 @@ def host(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     lib.raytpu_trace_fwd_host.argtypes = _TABLES + [_P] + _PIXELS
     lib.raytpu_trace_bwd_host.argtypes = _TABLES + [_P, _P] + _PIXELS
+    lib.raytpu_trace_bwd_ref_host.argtypes = _TABLES + [_P, _P] + _PIXELS
     lib.raytpu_node_host.argtypes = _TABLES + [_P, _I, _I] + [_P] * 8
     return lib
 
@@ -74,14 +78,20 @@ def host_forward(lib, scene, cfg, offset=0, count=None, stride=1):
     return out.T
 
 
-def host_grad(lib, scene, cfg, g, offset=0, count=None, stride=1):
+def host_grad(lib, scene, cfg, g, offset=0, count=None, stride=1, walk="new"):
+    """The gradient Scene by the backward's walk (walk="new") or the
+    reference instance's (walk="ref")."""
     count = cfg.num_pixels if count is None else count
     *keep, tables = _tables(scene)
     n, nl = scene.spheres.count, scene.lights.count
     gout = torch.zeros(12 * n + 6 * nl + 5)
     g_t = g.T.contiguous()
-    lib.raytpu_trace_bwd_host(*tables, g_t.data_ptr(), gout.data_ptr(),
-                              *_pixel_args(cfg, offset, count, stride))
+    args = (*tables, g_t.data_ptr(), gout.data_ptr(),
+            *_pixel_args(cfg, offset, count, stride))
+    if walk == "ref":
+        lib.raytpu_trace_bwd_ref_host(*args)
+    else:
+        lib.raytpu_trace_bwd_host(*args)
     return grads_from_table(gout, n, nl)
 
 
@@ -124,17 +134,37 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_walk_matches_plain_gradient(host, case):
+def _case_cotangent(lib, case):
     make, cfg_kw, sel = CASES[case]
     scene, cfg = make(), tconfig.RenderConfig(**cfg_kw)
-    fwd = host_forward(host, scene, cfg, **sel)
+    fwd = host_forward(lib, scene, cfg, **sel)
     plain = render_pixels_torch(scene, cfg, **sel)
-    g = masked_cotangent(fwd, plain)
-    got = host_grad(host, scene, cfg, g, **sel)
+    return scene, cfg, sel, masked_cotangent(fwd, plain)
+
+
+@pytest.mark.parametrize("walk", ["new", "ref"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_walk_matches_plain_gradient(host, case, walk):
+    scene, cfg, sel, g = _case_cotangent(host, case)
+    got = host_grad(host, scene, cfg, g, walk=walk, **sel)
     want = grad_pixels_torch(scene, cfg, g, **sel)
     for name, a, w in zip(LEAF_NAMES, scene_leaves(got), scene_leaves(want)):
         assert_close_masked(name, a, w)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_walk_matches_the_brute_force_walk(host, case):
+    """The backward's walk (saved selections, one tree a sample, a medium's
+    cotangent added where it is read) against the reference instance's
+    walk: the same terms summed in another order, so every leaf within
+    1e-5 x its scale."""
+    scene, cfg, sel, g = _case_cotangent(host, case)
+    got = host_grad(host, scene, cfg, g, walk="new", **sel)
+    want = host_grad(host, scene, cfg, g, walk="ref", **sel)
+    for name, a, w in zip(LEAF_NAMES, scene_leaves(got), scene_leaves(want)):
+        a, w = a.numpy().astype(np.float64), w.numpy().astype(np.float64)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert np.abs(a - w).max() <= 1e-5 * scale, name
 
 
 def _seeded_states(scene, rng, count):
@@ -225,3 +255,25 @@ def test_node_adjoint_matches_autograd_of_trace_level(host):
                         ("medium ior", slice(12, 13)),
                         ("medium opacity", slice(13, 14))):
         assert_close_masked(field, got["dstate"][:, cols], want[:, cols])
+
+
+
+def test_walk_with_more_lights_than_a_bit_word(host):
+    """40 lights (K2's shared table, many shadow tests a node): the
+    backward's walk against the reference instance's walk (1e-5 x scale)
+    and autograd under the gradient contract of tests/test_pallas.py:304-314
+    (rtol 5e-2 where |ref| > 1e-3*scale): both walks are off autograd by
+    the same 5.4e-3 on a light position here, the adjoint's float32 sums
+    over 40 lights taken in another order than autograd's."""
+    scene = tscene.random_scene(6, num_lights=40, seed=1, spread=5.0)
+    cfg = tconfig.RenderConfig(width=24, height=16, max_depth=2, alias_factor=1)
+    g = masked_cotangent(host_forward(host, scene, cfg),
+                         render_pixels_torch(scene, cfg))
+    got = host_grad(host, scene, cfg, g)
+    ref = host_grad(host, scene, cfg, g, walk="ref")
+    want = grad_pixels_torch(scene, cfg, g)
+    for name, a, r, w in zip(LEAF_NAMES, scene_leaves(got), scene_leaves(ref),
+                             scene_leaves(want)):
+        assert_close_masked(name, a, w, rtol=5e-2)
+        scale = max(float(r.abs().max()), 1e-30)
+        assert float((a - r).abs().max()) <= 1e-5 * scale, name

@@ -18,7 +18,12 @@ bit; its whole gradient against the kernel pair's under
 tests/test_wavefront.py:196-219's (every leaf within 2e-3*scale).  The
 level kernel through its BVH and the level backward from the saved
 selections are held to their brute-force reference instances bit for bit
-(the backward's atomically summed tables within 1e-5 x scale).
+(the backward's atomically summed tables within 1e-5 x scale), and the
+dense backward to its reference instance (the previous design) within
+1e-5 x scale.  Beyond the dense kernels' bounds (depth above MAX_DEPTH,
+more than MAX_SPHERES spheres or MAX_LIGHTS lights) "auto" renders and
+trains through the wavefront, held to the plain versions; a pixel subset
+trains through the eager tracer.
 """
 
 import dataclasses
@@ -31,7 +36,9 @@ import torch
 from raytpu_torch.config import BENCH_CONFIGS, RenderConfig
 from raytpu_torch.grad import loss_and_grad
 from raytpu_torch.kernels import trace_cuda, wavefront
-from raytpu_torch.kernels.trace_cuda import (grad_pixels_cuda, grad_pixels_torch,
+from raytpu_torch.kernels.trace_cuda import (grad_pixels_cuda,
+                                             grad_pixels_reference,
+                                             grad_pixels_torch,
                                              render_pixels_cuda,
                                              render_pixels_cuda_ad,
                                              render_pixels_torch)
@@ -209,9 +216,23 @@ def test_wavefront_kernels_raise_on_what_they_do_not_take(dev):
     _, kids = wavefront.wf_level(scene, state, True)
     with pytest.raises(TypeError):    # pids on the CPU, children on the card
         wavefront.compact(kids, pid.cpu(), cap, ws)
-    with pytest.raises(ValueError):
-        wavefront.render_pixels_wavefront(
-            scene, RenderConfig(width=8, height=8, max_depth=trace_cuda.MAX_DEPTH + 1))
+    # A depth beyond the dense kernels' stack: the wavefront takes it.
+    deep = RenderConfig(width=8, height=8, max_depth=trace_cuda.MAX_DEPTH + 1,
+                        alias_factor=1)
+    img = wavefront.render_pixels_wavefront(scene, deep)
+    assert_wavefront_contract(img, render_pixels_torch(scene, deep))
+
+
+def assert_wavefront_contract(got, want):
+    """tests/test_wavefront.py:25-36: outliers at 1e-3*scale <= 0.5%, mean
+    abs diff < 1e-4*scale."""
+    got = got.reshape(-1, 3).cpu().numpy()
+    want = want.reshape(-1, 3).cpu().numpy()
+    assert np.isfinite(got).all()
+    scale = max(float(np.abs(want).max()), 1e-30)
+    d = np.abs(got - want)
+    assert (d.max(axis=-1) > 1e-3 * scale).mean() <= 0.005
+    assert d.mean() < 1e-4 * scale
 
 
 def test_render_single_wavefront_launches_both_kernels(dev):
@@ -333,15 +354,15 @@ def test_uncompact_kernel_is_bit_identical_to_plain_version(dev):
     rng = np.random.default_rng(4)
     n_alive = int((kids[6:9] != 0).any(dim=0).sum())
     for keep in (min(2 * state.shape[1], cap), n_alive // 2):
-        got = wavefront.compact(kids, pid, keep, ws, return_src=True)
-        want = wavefront.compact_torch(kids, pid, keep, ws, return_src=True)
+        got = wavefront.compact(kids, pid, keep, ws, return_dst=True)
+        want = wavefront.compact_torch(kids, pid, keep, ws, return_dst=True)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         d = torch.tensor(rng.normal(size=(10, keep)).astype(np.float32), device=dev)
         before = wavefront.WF_UNCOMPACT.launches
-        out = wavefront.uncompact(d, got[4], kids.shape[1])
+        out = wavefront.uncompact(d, got[4], keep)
         torch.cuda.synchronize()
         assert wavefront.WF_UNCOMPACT.launches == before + 1
-        assert torch.equal(out, wavefront.uncompact_torch(d, got[4], kids.shape[1]))
+        assert torch.equal(out, wavefront.uncompact_torch(d, got[4], keep))
 
 
 def test_loss_and_grad_wavefront_matches_kernel_pair(dev):
@@ -412,18 +433,22 @@ def test_wavefront_backward_raises_on_what_it_does_not_take(dev):
     with pytest.raises(ValueError):   # selections of another state
         wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, True,
                                sel=sel[:, :-1].contiguous())
-    src = wavefront.compact(kids, pid, cap, ws, return_src=True)[4]
+    dst = wavefront.compact(kids, pid, cap, ws, return_dst=True)[4]
     d = torch.zeros(10, cap, device=dev)
     with pytest.raises(TypeError):
-        wavefront.uncompact(d, src.long(), kids.shape[1])
+        wavefront.uncompact(d, dst.long(), cap)
     with pytest.raises(ValueError):
-        wavefront.uncompact(d[:, :-1].contiguous(), src, kids.shape[1])
+        wavefront.uncompact(d[:, :-1].contiguous(), dst, cap)
+    with pytest.raises(ValueError):
+        wavefront.uncompact(d[:9].contiguous(), dst, cap)
     with pytest.raises(TypeError):
-        wavefront.uncompact(d.double(), src, kids.shape[1])
-    with pytest.raises(ValueError):
-        loss_and_grad_wavefront(scene, RenderConfig(
-            width=8, height=8, max_depth=trace_cuda.MAX_DEPTH + 1),
-            torch.zeros(64, 3, device=dev))
+        wavefront.uncompact(d.double(), dst, cap)
+    # A depth beyond the dense kernels' stack: the wavefront trains it.
+    loss, grads = loss_and_grad_wavefront(scene, RenderConfig(
+        width=8, height=8, max_depth=trace_cuda.MAX_DEPTH + 1),
+        torch.zeros(64, 3, device=dev))
+    assert torch.isfinite(loss) and all(torch.isfinite(t).all()
+                                        for t in scene_leaves(grads))
 
 
 def test_training_auto_takes_the_measured_crossover(dev):
@@ -431,7 +456,9 @@ def test_training_auto_takes_the_measured_crossover(dev):
 
     scene = default_scene(device=dev)
     small = RenderConfig(width=40, height=30, max_depth=2)
-    assert resolve_train_backend("auto", scene, BENCH_CONFIGS["config3"]) == "wavefront"
+    assert resolve_train_backend("auto", scene, BENCH_CONFIGS["config3"]) == "cuda"
+    assert resolve_train_backend("auto", random_scene(64, seed=3, device=dev),
+                                 BENCH_CONFIGS["config3"]) == "wavefront"
     assert resolve_train_backend("auto", scene, small) == "cuda"
     # K2 cannot stage 3000 spheres' tables: the wavefront at any size.
     assert resolve_train_backend("auto", random_scene(3000, device=dev), small) == "wavefront"
@@ -479,3 +506,132 @@ def test_level_backward_from_sel_matches_its_reference(dev, spawn):
         assert torch.equal(_bits(got[0]), _bits(want[0]))
         for a, b in zip(got[1:], want[1:]):
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("case", ["default_d3_a3", "random32_d1", "stride",
+                                  "lights40_d2"])
+def test_backward_kernel_matches_its_reference(dev, case):
+    """K2 (one tree a camera sample, saved selections, a gradient table a
+    thread where it fits) against its reference instance, the previous
+    design: every table within 1e-5 x its scale (atomics' order), on the
+    lane-table instance (N = 3) and the shared-table one (N = 32, and 40
+    lights)."""
+    scene, cfg, sel = {
+        "default_d3_a3": (default_scene(device=dev),
+                          RenderConfig(width=64, height=32, max_depth=3, alias_factor=3), {}),
+        "random32_d1": (random_scene(32, seed=3, device=dev),
+                        RenderConfig(width=64, height=16, max_depth=1, alias_factor=1), {}),
+        "stride": (default_scene(device=dev),
+                   RenderConfig(width=64, height=32, max_depth=2, alias_factor=2),
+                   dict(offset=5, stride=3, count=600)),
+        "lights40_d2": (random_scene(6, num_lights=40, seed=1, spread=5.0, device=dev),
+                        RenderConfig(width=48, height=32, max_depth=2, alias_factor=2), {}),
+    }[case]
+    count = sel.get("count", cfg.num_pixels)
+    rng = np.random.default_rng(5)
+    g = torch.tensor(rng.uniform(0.5, 1.5, (count, 3)).astype(np.float32), device=dev)
+    before = trace_cuda.TRACE_BWD.launches
+    got = grad_pixels_cuda(scene, cfg, g, **sel)
+    want = grad_pixels_reference(scene, cfg, g, **sel)
+    torch.cuda.synchronize()
+    assert trace_cuda.TRACE_BWD.launches == before + 1  # the reference is not counted
+    for a, w in zip(scene_leaves(got), scene_leaves(want)):
+        assert torch.isfinite(a).all()
+        assert float((a - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1e-30)
+
+
+def test_auto_renders_beyond_the_dense_bounds(dev):
+    """Depth 10, 5000 spheres at depth 0, 1100 lights: render "auto" takes
+    the wavefront (K3 through the read-only cache or in place, K5), held to
+    the plain version; an explicit "cuda" raises naming the bound."""
+    cases = [
+        (default_scene(device=dev), RenderConfig(width=64, height=48, max_depth=10,
+                                                 alias_factor=1)),
+        (random_scene(5000, seed=3, device=dev),
+         RenderConfig(width=64, height=48, max_depth=0, alias_factor=1)),
+        (random_scene(8, num_lights=1100, seed=2, spread=5.0, device=dev),
+         RenderConfig(width=64, height=48, max_depth=2, alias_factor=1)),
+    ]
+    for scene, cfg in cases:
+        assert resolve_backend("auto", dev, scene, cfg) == "wavefront"
+        before = wavefront.WF_LEVEL.launches
+        img = render_single(scene, cfg)
+        torch.cuda.synchronize()
+        assert wavefront.WF_LEVEL.launches > before
+        assert_wavefront_contract(img, render_single(scene, cfg, backend="torch"))
+        with pytest.raises(ValueError, match="max_depth|spheres|lights"):
+            render_single(scene, cfg, backend="cuda")
+
+
+def test_auto_trains_beyond_the_dense_bounds(dev):
+    """Training "auto" at depth 10, at 5000 spheres and at 1100 lights is
+    the wavefront (K3 and K4 with the scene read in place at 5000); its
+    gradient against the plain version's on a cotangent zeroed where the
+    forwards differ."""
+    from raytpu_torch.grad import resolve_train_backend
+
+    for scene, cfg in (
+            (default_scene(device=dev),
+             RenderConfig(width=64, height=48, max_depth=10, alias_factor=1)),
+            (random_scene(5000, seed=3, device=dev),
+             RenderConfig(width=64, height=48, max_depth=2, alias_factor=1)),
+            (random_scene(8, num_lights=1100, seed=2, spread=5.0, device=dev),
+             RenderConfig(width=64, height=48, max_depth=2, alias_factor=1))):
+        assert resolve_train_backend("auto", scene, cfg) == "wavefront"
+        loss, grads = loss_and_grad(scene, cfg, torch.zeros(cfg.num_pixels, 3, device=dev))
+        assert torch.isfinite(loss)
+        leaves = [t.clone().requires_grad_(True) for t in scene_leaves(scene)]
+        img = wavefront.render_pixels_wavefront(scene_from_leaves(leaves), cfg)
+        plain = render_pixels_torch(scene, cfg)
+        assert_wavefront_contract(img.detach(), plain)
+        bad = (img.detach() - plain).abs().amax(dim=1) > 1e-5 * plain.abs().max()
+        g = torch.ones_like(plain)
+        g[bad] = 0.0
+        got = torch.autograd.grad(torch.sum(img * g), leaves, allow_unused=True)
+        want = grad_pixels_torch(scene, cfg, g)
+        for a, w in zip(got, scene_leaves(want)):
+            a = torch.zeros_like(w) if a is None else a
+            a, w = a.cpu().numpy().ravel(), w.cpu().numpy().ravel()
+            big = np.abs(w) > 1e-3 * max(float(np.abs(w).max()), 1e-30)
+            np.testing.assert_allclose(a[big], w[big], rtol=5e-2, atol=1e-12)
+
+
+def test_pixel_subset_trains_on_a_cuda_scene(dev):
+    """image_loss and exposure_image_loss with a strided gid under "auto" on
+    a CUDA scene (the eager tracer), against the same calls on the CPU."""
+    from raytpu_torch.grad import exposure_image_loss, image_loss
+
+    cfg = RenderConfig(width=40, height=30, max_depth=2, alias_factor=2)
+    rng = np.random.default_rng(3)
+    target = rng.uniform(0, 1e-4, (cfg.num_pixels, 3)).astype(np.float32)
+    gid = np.arange(3, cfg.num_pixels, 7)
+    for fn in (image_loss, exposure_image_loss):
+        got = fn(default_scene(device=dev), cfg, torch.tensor(target, device=dev),
+                 gid=torch.tensor(gid, device=dev))
+        want = fn(default_scene(), cfg, torch.tensor(target), gid=torch.tensor(gid))
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+        with pytest.raises(ValueError):
+            fn(default_scene(device=dev), cfg, torch.tensor(target, device=dev),
+               gid=torch.tensor(gid, device=dev), backend="cuda")
+
+
+def test_level_kernels_take_a_scene_beyond_shared_memory(dev):
+    """5000 spheres: K3 reads the scene table and the tree in place, K4 the
+    scene table, both against their plain versions (the reference
+    instances stage the table in shared memory and refuse it)."""
+    scene = random_scene(5000, seed=3, device=dev)
+    cfg = RenderConfig(width=32, height=16, max_depth=1, alias_factor=1)
+    chunk, _, _, n = wavefront.wavefront_sizes(cfg, 1 << 13, 2)
+    state, _ = wavefront.chunk_camera_state(cfg, chunk, n, 0, cfg.num_pixels,
+                                            device=dev)
+    em, kids, sel = wavefront.wf_level(scene, state, True, return_sel=True)
+    pem, pkids = wavefront.wf_level_torch(scene, state, True)
+    contract(em.T, pem.T)
+    assert (~torch.isclose(kids, pkids, rtol=1e-5, atol=1e-6).all(dim=0)).float().mean() <= 0.01
+    em_ct, ch_ct, keep, sel = masked_level_cotangents(scene, state, True, seed=3)
+    got = wavefront.wf_level_bwd(scene, state, em_ct, ch_ct, True, sel=sel)
+    torch.cuda.synchronize()
+    assert_level_grads(got, wavefront.wf_level_bwd_torch(scene, state, em_ct, ch_ct, True),
+                       keep, state)
+    with pytest.raises(ValueError):
+        wavefront.wf_level_reference(scene, state, True)

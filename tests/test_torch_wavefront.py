@@ -50,7 +50,7 @@ from raytpu_torch.kernels.wavefront import (N_STATE, camera_state, compact,
 from raytpu_torch.kernels.wavefront import (
     render_pixels_wavefront as t_render_pixels_wavefront)
 from raytpu_torch.render import DroppedRaysError, render_single
-from raytpu_torch.trace import render_image
+from raytpu_torch.trace import _gather_medium, _trace_level, render_image
 
 torch.set_num_threads(2)
 
@@ -91,6 +91,44 @@ def seeded_states(scene, seed, rays=8192):
 def rays_off(got, want, atol):
     """Rays (columns) where any field is off rtol 1e-5."""
     return ~np.isclose(got, want, rtol=1e-5, atol=atol).all(axis=0)
+
+
+def level_every_ray(scene, state, spawn):
+    """K3's plain version as it stood before it traced only the live rays:
+    every ray of the state, the dead ones too, through _trace_level, and the
+    children that are not spawned written as ten zeros."""
+    rays = state.shape[1]
+    matte, ior, opacity = _gather_medium(scene.spheres, scene.bg,
+                                         state[9].to(torch.int64))
+    em, children = _trace_level(scene, state[0:3].T, state[3:6].T, state[6:9].T,
+                                matte, ior, opacity, spawn, medium_idx=state[9])
+    if not spawn:
+        return em.T, None
+    origin, direction, intensity, index = children
+    fields = torch.cat([origin.T, direction.T, intensity.T, index[None]])
+    fields = fields.reshape(N_STATE, 2, rays).transpose(1, 2).reshape(N_STATE, 2 * rays)
+    alive = (fields[6:9] != 0).any(dim=0)
+    return em.T, torch.where(alive, fields, torch.zeros_like(fields))
+
+
+@pytest.mark.parametrize("name,spawn", [("default", True), ("random24", True),
+                                        ("random24", False)])
+def test_plain_level_of_live_rays_equals_every_ray(name, spawn):
+    """Tracing only the live rays changes nothing: a dead ray (intensity
+    exactly zero) emits exact zeros and spawns nothing either way."""
+    ts = SCENES[name][1]()
+    st = torch.from_numpy(seeded_states(ts, seed=4))
+    dead = (st[6:9] == 0).all(dim=0)
+    assert 0 < int(dead.sum()) < st.shape[1]
+    em, kids = wf_level_torch(ts, st, spawn)
+    want_em, want_kids = level_every_ray(ts, st, spawn)
+    assert torch.equal(em, want_em)
+    assert (em[:, dead] == 0).all()
+    if spawn:
+        assert torch.equal(kids, want_kids)
+        assert (kids.view(N_STATE, -1, 2)[:, dead] == 0).all()
+    else:
+        assert kids is None and want_kids is None
 
 
 # (scene, spawn) -> rays off rtol 1e-5 of the 8192 against raytpu's level

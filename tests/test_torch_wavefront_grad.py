@@ -260,32 +260,43 @@ def test_level_backward_kernel_body_matches_plain_version(host, name, spawn):
 @pytest.mark.parametrize("cap_kind", ["below", "above"])
 def test_uncompact_is_the_adjoint_of_compact(host, cap_kind):
     kids, pid = seeded_children(seed=7)
-    n_alive = int((kids[6:9] != 0).any(axis=0).sum())
+    alive = (kids[6:9] != 0).any(axis=0)
+    n_alive = int(alive.sum())
     cap = n_alive - 555 if cap_kind == "below" else kids.shape[1]
     x = torch.from_numpy(kids).requires_grad_(True)
-    state, out_pid, dropped, n_kept, src = compact_torch(
-        x, torch.from_numpy(pid), cap, 600, return_src=True)
+    state, out_pid, dropped, n_kept, dst = compact_torch(
+        x, torch.from_numpy(pid), cap, 600, return_dst=True)
     n = int(n_kept)
     assert int(dropped) == max(n_alive - cap, 0)
-    assert (src[n:] == -1).all() and (torch.diff(src[:n]) > 0).all()
+    # dst: the kept children's slots 0..n-1 in order; -1 for the dead
+    # children and the dropped ones.
+    kept = dst >= 0
+    assert torch.equal(dst[kept], torch.arange(n, dtype=torch.int32))
+    assert int(kept.sum()) == n and not kept[torch.from_numpy(~alive)].any()
     y = np.random.default_rng(8).normal(size=(N_STATE, cap)).astype(np.float32)
     y[9] = 0.0  # the index's cotangent is zero
     y = torch.from_numpy(y)
-    back = uncompact_torch(y, src, kids.shape[1])
+    back = uncompact_torch(y, dst, cap)
     lhs = float((state.detach().double() * y.double()).sum())
     rhs = float((torch.from_numpy(kids).double() * back.double()).sum())
     assert abs(lhs - rhs) <= 1e-12 * max(abs(lhs), 1.0)
     (auto,) = torch.autograd.grad(state, x, y)
     assert torch.equal(auto, back)
-    assert (back[:, ~(kids[6:9] != 0).any(axis=0)] == 0).all()
-    assert torch.equal(uncompact(y, src, kids.shape[1]), back)  # CPU: plain
+    assert (back[:, ~alive] == 0).all() and (back[:, ~kept] == 0).all()
+    assert torch.equal(uncompact(y, dst, cap), back)  # CPU: plain
     out = torch.full((N_STATE, kids.shape[1]), np.nan)
-    host["wf_uncompact"].raytpu_wf_uncompact_host(y.data_ptr(), cap, src.data_ptr(),
+    host["wf_uncompact"].raytpu_wf_uncompact_host(y.data_ptr(), cap, dst.data_ptr(),
                                                   kids.shape[1], out.data_ptr())
-    assert torch.equal(out, back)
+    assert torch.equal(out, back)  # the kernel's per-column function, bit for bit
     with pytest.raises(TypeError):
-        uncompact(y, src.long(), kids.shape[1])
-    # Without return_src the compaction is as it was.
+        uncompact(y, dst.long(), cap)
+    # A state cotangent narrower than the compaction's capacity: the
+    # kernel's gather would read past it.
+    with pytest.raises(ValueError, match="slots"):
+        uncompact(y[:, :-1].contiguous(), dst, cap)
+    with pytest.raises(ValueError, match="slots"):
+        uncompact_torch(y[:, :-1].contiguous(), dst, cap)
+    # Without return_dst the compaction is as it was.
     plain = compact(torch.from_numpy(kids), torch.from_numpy(pid), cap, 600)
     assert len(plain) == 4 and all(torch.equal(a, b) for a, b in zip(
         plain, (state.detach(), out_pid, dropped, n_kept)))
@@ -423,14 +434,15 @@ def test_fit_example_wavefront_on_the_cpu(capsys):
 
 def test_training_backend_resolution():
     """"auto" trains through the wavefront on a CUDA scene from 640x480 3x3
-    camera rays up (the crossover measured on the card); on the CPU it is
-    the eager tracer, and an explicit backend is kept."""
+    camera rays and N x depth 256 up (the crossover measured on the card);
+    on the CPU it is the eager tracer, and an explicit backend is kept."""
     from raytpu_torch.render import _wf_wins_train
 
     ts = tscene.default_scene()
     big = tconfig.RenderConfig(width=640, height=480, max_depth=4)
     small = tconfig.RenderConfig(width=64, height=48, max_depth=4)
-    assert _wf_wins_train(big) and not _wf_wins_train(small)
+    assert _wf_wins_train(64, big) and not _wf_wins_train(64, small)
+    assert not _wf_wins_train(3, big)  # config 3 trains through the pair
     assert tgrad.resolve_train_backend("auto", ts, big) == "torch"
     assert tgrad.resolve_train_backend("wavefront", ts, small) == "wavefront"
     with pytest.raises(ValueError):
