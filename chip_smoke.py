@@ -12,12 +12,15 @@ result lines):
      wf_level_bwd, wf_uncompact) from raytpu_torch/csrc, one nvcc each, all
      started together, and wf_level.cu's counting host build (g++
      -DRT_BVH_COUNT); print every instance's ptxas resources and hold K1's
-     and K2's reference instance's (the previous design of K2, kept as it
-     was) to the lines they had before the sphere queries became a policy
+     and K2's reference instances' (the previous designs, kept as they
+     were) to the lines they had before the sphere queries became a policy
      (the policies leave their code as it was);
   3. hold the forward kernel against its plain PyTorch version on the card,
      under the forward contract of tests/test_pallas.py (outlier fraction
-     <= 1% at 1e-2*scale, mean abs diff < 1e-3*scale);
+     <= 1% at 1e-2*scale, mean abs diff < 1e-3*scale), and bit for bit
+     against its reference instance (the previous design: a thread a
+     pixel) there and at alias 1-4 and 12, on a strided set and at 4096
+     spheres and 1024 lights;
   4. hold the backward kernel against its plain version (autograd of the
      eager tracer) on the same cases, under the gradient contract of
      tests/test_pallas.py:304-314 (rtol 5e-2 where |plain| > 1e-3*scale),
@@ -25,10 +28,12 @@ result lines):
      1e-5*scale, and against its reference instance (every table within
      1e-5 x scale: atomics sum in another order);
   5. anchor to the JAX reference without JAX: the forward kernel against
-     the linear golden written by raytpu.trace (tests/goldens);
+     the linear golden written by raytpu.trace (tests/goldens), and bit for
+     bit against its reference instance;
   6. the render path: raytpu_torch.cli.main(["-o", <tmp>.ppm]), the golden
      800x600 depth-5 3x3 render with --backend auto, counting trace_fwd's
-     launches and holding the image against the plain version;
+     launches and holding the image against the plain version and, bit for
+     bit, against K1's reference instance;
   7. the training path: raytpu_torch.examples.fit_scene.main at config 3
      (640x480, depth 4, 3x3 AA), 3 geometry steps with --backend cuda (the
      kernel pair, which "auto" also takes for this scene and frame),
@@ -36,9 +41,12 @@ result lines):
      the kernel's and, on the masked cotangent, against the plain version
      and K2's reference instance;
   8. time the config-3 training step and the backward kernel alone, K2
-     against its reference instance in turns, then config 3 and the golden
-     frame's forward, kernel against plain version, with CUDA events
-     (median of 5 after 1 warm-up);
+     against its reference instance in turns; K1 against its reference
+     instance bit for bit at config 3 with alias 1-4, in turns, by the
+     profiler's kernel time and back to back, and its wrapper's host work
+     split by a host clock; then config 3 and the golden frame's forward,
+     kernel against plain version, with CUDA events (median of 5 after 1
+     warm-up);
   9. each kernel's bound at config 3: operations counted from the sources
      over the work the plain version's masks show, against 67 TFLOP/s, and
      bytes against 3.35 TB/s;
@@ -46,7 +54,10 @@ result lines):
      widths (random_scene(256, seed=3), chunk 0 at the auto ladder's first
      rung): the level kernel (K3) under the forward contract at level 0 and
      the first two compacted levels, the compaction (K5) bit for bit, also
-     at a capacity below the live count so that its drop path runs;
+     at a capacity below the live count so that its drop path runs, and on
+     its edge cases (no children, less than a tile, every child dead or
+     live, a capacity below the live count or above the children, a
+     4096-tile look-back chain) and back to back on one stream;
  11. the wavefront path: raytpu_torch.cli.main at config 5 (1920x1080,
      depth 6, 3x3 AA, 256 spheres) with --backend wavefront --strict-drops,
      counting both kernels' launches (chunks x 7 and chunks x 6 x 2 per
@@ -72,7 +83,8 @@ result lines):
      rays whose forwards differ): the level backward (K4) under the
      gradient contract per ray and per scene table, with exact zeros on
      dead rays; the compaction's transpose (K6, from K5's destination
-     index) bit for bit, also at a capacity below the live count;
+     index) bit for bit, also at a capacity below the live count, and K5
+     with its destination index on phase 10's edge cases;
  14. the wavefront training path: raytpu_torch.grad.fit_scene at config 5
      with backend="wavefront", 3 steps of matte and light colours from the
      fit example's perturbation, counting K3, K4, K5 and K6 launches (chunks
@@ -196,13 +208,13 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-# The ptxas resource lines (sm_90a) of K1 and of K2's reference instance
-# (the previous design of K2, kept as it was) from before the sphere
-# queries became a policy of trace_common.cuh: the brute-force policy they
-# use must leave their code unchanged.  Keyed by library, then by the
-# kernel's length-prefixed name in its mangled symbol.
+# The ptxas resource lines (sm_90a) of K1's and K2's reference instances
+# (the previous designs, kept as they were) from before the sphere queries
+# became a policy of trace_common.cuh: the brute-force policy they use must
+# leave their code unchanged.  Keyed by library, then by the kernel's
+# length-prefixed name in its mangled symbol.
 BRUTE_FORCE_PTXAS = {
-    "trace_fwd": ("16trace_fwd_kernel", (
+    "trace_fwd": ("20trace_fwd_ref_kernel", (
         "496 bytes stack frame, 20 bytes spill stores, 12 bytes spill loads",
         "Used 64 registers, used 1 barriers, 496 bytes cumulative stack size")),
     "trace_bwd": ("20trace_bwd_ref_kernel", (
@@ -411,6 +423,62 @@ def turns(ref, new, rounds=2):
             new_out)
 
 
+def kernel_device_ms(fn, kernel, calls=20):
+    """Device ms a launch of the kernel named `kernel` takes under
+    torch.profiler over `calls` calls of fn back to back, or None when the
+    profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA and f"::{kernel}(" in e.key:
+            us += getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+            n += e.count
+    return us / 1e3 / n if n else None
+
+
+def back_to_back_ms(fn, calls=30):
+    """ms a call of fn takes in a run of `calls` calls between two CUDA
+    events, after a warm-up: device time where the host keeps ahead."""
+    import torch
+
+    fn(), fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def host_us(fns, reps=200):
+    """{name: host microseconds a call of fn takes, by perf_counter over
+    `reps` calls}; the device work the calls enqueue is left to run."""
+    import torch
+
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
 def same_bits(a, b):
     """Tensors equal bit for bit (floats compared as their int32 words)."""
     import torch
@@ -420,6 +488,73 @@ def same_bits(a, b):
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+# K5's edge cases: (parents, live fraction, capacity).  No children, fewer
+# than one tile (4096 children), every child dead, every child live, a
+# capacity below the live count, one above the children, and a look-back
+# chain of 2048 tiles (each level of config 5's chunk 0 has 2,052).
+COMPACT_CASES = {
+    "no children": (0, 0.5, 4096),
+    "less than a tile": (300, 0.6, 1024),
+    "every child dead": (3000, 0.0, 2048),
+    "every child live": (3000, 1.0, 8192),
+    "capacity below the live count": (5000, 0.7, 3000),
+    "capacity above the children": (1000, 0.5, 9000),
+    "a long look-back chain": (1 << 22, 0.45, 1 << 22),
+}
+
+
+def seeded_children(parents, live_frac, seed, dev):
+    """(10, 2 * parents) children as K3 writes them (a dead child is ten
+    exact zeros) and the parents' pids, on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    kids = 2 * parents
+    ch = rng.normal(size=(10, kids)).astype(np.float32)
+    ch[9] = rng.integers(-1, 8, kids)
+    ch[6:9][:, rng.random(kids) < 0.5] = 0.0
+    ch[6 + rng.integers(0, 3, kids), np.arange(kids)] = 0.5 + rng.random(kids)
+    ch[:, rng.random(kids) >= live_frac] = 0.0
+    pid = rng.integers(0, 1 << 20, parents).astype(np.int32)
+    return torch.from_numpy(ch).to(dev), torch.from_numpy(pid).to(dev)
+
+
+def compact_edge_cases(dev, return_dst):
+    """K5 bit for bit against compact_torch on COMPACT_CASES, then three
+    compactions enqueued twice over with no synchronisation, each one's
+    outputs freed before the next so that the allocator may hand it the
+    last one's scratch (status words and ticket).  Returns a summary."""
+    import torch
+
+    from raytpu_torch.kernels.wavefront import compact, compact_torch
+
+    for case, (parents, frac, cap) in COMPACT_CASES.items():
+        ch, pid = seeded_children(parents, frac, len(case), dev)
+        got = compact(ch, pid, cap, 37, return_dst=return_dst)
+        torch.cuda.synchronize()
+        want = compact_torch(ch, pid, cap, 37, return_dst=return_dst)
+        check(all(same_bits(a, b) for a, b in zip(got, want)),
+              f"K5 (dst {return_dst}) on '{case}': differs from compact_torch")
+    inputs = [seeded_children(40000 + 999 * k, 0.3 + 0.2 * k, 50 + k, dev)
+              for k in range(3)]
+    wants = [compact_torch(ch, pid, 50000, 101, return_dst=return_dst)
+             for ch, pid in inputs]
+    torch.cuda.synchronize()
+    kept = []
+    for rep in range(2):
+        for (ch, pid), want in zip(inputs, wants):
+            got = compact(ch, pid, 50000, 101, return_dst=return_dst)
+            if rep:
+                kept.append((got, want))
+            del got
+    torch.cuda.synchronize()
+    check(all(same_bits(a, b) for got, want in kept for a, b in zip(got, want)),
+          f"K5 (dst {return_dst}) back to back on one stream: differs from "
+          f"compact_torch")
+    return (f"{len(COMPACT_CASES)} edge cases ({', '.join(COMPACT_CASES)}) and "
+            f"6 compactions back to back on one stream bit-identical")
 
 
 # fp32 operations of the tree walk (csrc/bvh.cuh): a slab test (6
@@ -502,7 +637,7 @@ def device_breakdown(prof):
             us = getattr(e, "self_cuda_time_total", 0.0)
         name = e.key
         group = ("wf_level" if "wf_level_kernel" in name
-                 else "wf_compact" if "wf_count_kernel" in name or "wf_scatter_kernel" in name
+                 else "wf_compact" if "wf_compact_kernel" in name or "wf_tail_kernel" in name
                  else "index_add_" if "index" in name.lower()
                  else "rest")
         groups[group] += us / 1e3
@@ -576,6 +711,7 @@ def wavefront_phases(dev, count_lib):
               f"({n_alive} live, {int(want[2])} dropped) and at cap {tight} "
               f"({n_alive - tight} dropped)")
         state, pid = got[0], got[1]
+    print(f"phase 10: K5: {compact_edge_cases(dev, return_dst=False)}")
 
     # Phase 11: the slice's path, config 5 through the CLI.
     captured = []
@@ -960,6 +1096,7 @@ def training_phases(dev):
                      f"dropped)")
         print(line)
         state, pid = compact(kids, pid, min(2 * state.shape[1], cap), ws)[:2]
+    print(f"phase 13: K5 with dst: {compact_edge_cases(dev, return_dst=True)}")
 
     # Phase 14: the slice's path, fit_scene(backend="wavefront") at config 5.
     truth = random_scene(256, seed=3, device=dev)
@@ -1068,7 +1205,7 @@ def training_phases(dev):
         group = ("K4 wf_level_bwd" if "wf_level_bwd_kernel" in name
                  else "K3 wf_level" if "wf_level_kernel" in name
                  else "K6 wf_uncompact" if "wf_uncompact_kernel" in name
-                 else "K5 wf_compact" if "wf_count_kernel" in name or "wf_scatter_kernel" in name
+                 else "K5 wf_compact" if "wf_compact_kernel" in name or "wf_tail_kernel" in name
                  else "index_add_ backward gather" if "indexselect" in low or "gather" in low
                  else "index_add_" if "index" in low
                  else "rest")
@@ -1452,6 +1589,7 @@ def main() -> int:
                                                  grad_pixels_reference,
                                                  grad_pixels_torch,
                                                  render_pixels_cuda,
+                                                 render_pixels_reference,
                                                  render_pixels_torch,
                                                  scene_tables)
     from raytpu_torch.kernels.wavefront import (WF_COMPACT, WF_LEVEL,
@@ -1515,15 +1653,25 @@ def main() -> int:
          RenderConfig(width=64, height=32, max_depth=2, alias_factor=1),
          dict(offset=5, stride=3, count=600), 0.01, 1e-3),
     ]
+    def same_as_ref(scene, cfg, label, **kw):
+        """K1 against its reference instance (the previous design), bit for
+        bit; returns K1's frame."""
+        k = render_pixels_cuda(scene, cfg, **kw)
+        ref = render_pixels_reference(scene, cfg, **kw)
+        torch.cuda.synchronize()
+        check(same_bits(k.contiguous(), ref.contiguous()),
+              f"K1 on {label}: differs from its reference instance")
+        return k
+
     rng = np.random.default_rng(0)
     for label, scene, cfg, kw, frac, mean in cases:
-        k = render_pixels_cuda(scene, cfg, **kw)
-        torch.cuda.synchronize()
+        k = same_as_ref(scene, cfg, label, **kw)
         p = render_pixels_torch(scene, cfg, **kw)
         s = contract(k.cpu(), p.cpu(), frac, mean)
         print(f"phase 3: {label}: outliers {s['outliers']:.5f} (<= {frac}) "
               f"mean/scale {s['mean_over_scale']:.3e} (< {mean}) "
-              f"max_abs_err {s['max_abs_err']:.3e}")
+              f"max_abs_err {s['max_abs_err']:.3e}; bit-identical to K1's "
+              f"reference instance")
         if label.startswith("single"):
             continue  # the K2 cases are the issue's list
         g = torch.tensor(rng.uniform(0.5, 1.5, tuple(p.shape)).astype(np.float32),
@@ -1538,9 +1686,33 @@ def main() -> int:
               f"{max_abs:.3e}; against K2's reference instance "
               f"{ref_err:.3e} x scale (<= 1e-5)")
 
+    # K1 against its reference instance beyond the cases above: alias 1-4,
+    # alias 12 (a pixel's 144 samples in two rounds of a block's 128 slots),
+    # a strided set with a clamped tail, and the largest tables K1 takes.
+    extra = [
+        ("default 64x32 a2 d3", ds, RenderConfig(width=64, height=32, max_depth=3, alias_factor=2), {}),
+        ("default 50x17 a4 d4", ds, RenderConfig(width=50, height=17, max_depth=4, alias_factor=4), {}),
+        ("random32 64x16 a3 d2", random_scene(32, seed=3, device=dev),
+         RenderConfig(width=64, height=16, max_depth=2, alias_factor=3), {}),
+        ("default 64x32 a3 d3 offset=5 stride=3 count=701", ds,
+         RenderConfig(width=64, height=32, max_depth=3, alias_factor=3),
+         dict(offset=5, stride=3, count=701)),
+        ("default 16x8 a12 d2 offset=3 stride=5 count=29", ds,
+         RenderConfig(width=16, height=8, max_depth=2, alias_factor=12),
+         dict(offset=3, stride=5, count=29)),
+        ("random(4096, 1024 lights) 8x4 a2 d1",
+         random_scene(4096, num_lights=1024, seed=4, device=dev),
+         RenderConfig(width=8, height=4, max_depth=1, alias_factor=2), {}),
+    ]
+    for label, scene, cfg, kw in extra:
+        k = same_as_ref(scene, cfg, label, **kw)
+        check(bool(torch.isfinite(k).all()), f"K1 on {label}: not finite")
+    print(f"phase 3: K1 bit-identical to its reference instance on "
+          f"{len(extra)} more cases: " + "; ".join(c[0] for c in extra))
+
     # Phase 5: anchor to the JAX reference's golden, written by raytpu.trace.
     cfg = RenderConfig(width=160, height=120, max_depth=4, alias_factor=3)
-    img = render_pixels_cuda(ds, cfg).reshape(120, 160, 3).cpu().numpy()
+    img = same_as_ref(ds, cfg, "the 160x120 golden").reshape(120, 160, 3).cpu().numpy()
     ref = np.load(os.path.join(GOLDENS, "default_160x120_d4_linear.npy"))
     s = contract(img, ref)
     exact = float((tone_map(img) == read_ppm(
@@ -1581,7 +1753,11 @@ def main() -> int:
               "the PPM on disk is not the rendered frame")
     plain = render.render_single(default_scene(device=dev), golden, backend="torch")
     s_main = contract(img, plain.cpu().numpy())
-    print(f"phase 6: cli golden 800x600 d5 a3: trace_fwd launches {launches}; "
+    ref = render_pixels_reference(default_scene(device=dev), golden)
+    check(same_bits(torch.from_numpy(img).reshape(-1, 3), ref.cpu().contiguous()),
+          "the CLI's golden frame differs from K1's reference instance")
+    print(f"phase 6: cli golden 800x600 d5 a3: bit-identical to K1's reference "
+          f"instance; trace_fwd launches {launches}; "
           f"vs plain outliers {s_main['outliers']:.5f} mean/scale "
           f"{s_main['mean_over_scale']:.3e} max_abs_err {s_main['max_abs_err']:.3e}")
 
@@ -1672,6 +1848,54 @@ def main() -> int:
         lambda: grad_pixels_cuda(scene0, c3, g), rounds=3)
     print(f"phase 8: config3 trace_bwd {k2_turn_ms:.3f} ms against its reference "
           f"instance {k2_ref_ms:.3f} ms in turns ({k2_ref_ms / k2_turn_ms:.2f}x)")
+    # K1 against its reference instance at config 3: bit for bit at alias
+    # 1-4; at alias 3 in turns (one call between two events, host work
+    # included), its device time back to back (the profiler's kernel time
+    # over 20 calls, and CUDA events around 30 calls in a row), and the
+    # wrapper's host work split by a host clock.
+    for alias in (1, 2, 3, 4):
+        same_as_ref(ds, RenderConfig(width=c3.width, height=c3.height,
+                                     max_depth=c3.max_depth, alias_factor=alias),
+                    f"config 3 at alias {alias}")
+    k1_ref_ms, k1_turn_ms, _, _ = turns(
+        lambda: render_pixels_reference(ds, c3),
+        lambda: render_pixels_cuda(ds, c3), rounds=3)
+    k1 = dict(turn_ms=k1_turn_ms, ref_ms=k1_ref_ms)
+    for key, fn, kernel in (
+            ("", lambda: render_pixels_cuda(ds, c3), "trace_fwd_kernel"),
+            ("ref_", lambda: render_pixels_reference(ds, c3), "trace_fwd_ref_kernel")):
+        k1[key + "device_ms"] = kernel_device_ms(fn, kernel)
+        k1[key + "back_to_back_ms"] = back_to_back_ms(fn)
+    import raytpu_torch.kernels.trace_cuda as trace_cuda
+    from raytpu_torch.trace import camera_constants
+
+    tables = scene_tables(ds)
+    out3 = torch.empty((3, c3.num_pixels), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (tables[0].data_ptr(), ds.spheres.count, tables[1].data_ptr(), ds.lights.count,
+            tables[2].data_ptr(), out3.data_ptr(), 0, c3.num_pixels, 1,
+            c3.num_pixels, c3.width, c3.alias_factor, c3.max_depth,
+            *camera_constants(c3), 0, stream)
+    entry = TRACE_FWD.function()
+    k1["host_us"] = host_us({
+        "_check_scene": lambda: trace_cuda._check_scene(ds, dev),
+        "scene_tables": lambda: scene_tables(ds),
+        "camera_constants": lambda: camera_constants(c3),
+        "torch.empty": lambda: torch.empty((3, c3.num_pixels), device=dev),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "C entry (launch)": lambda: entry(*args),
+        "render_pixels_cuda": lambda: render_pixels_cuda(ds, c3),
+        "render_single": lambda: render.render_single(ds, c3, "cuda"),
+    })
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
+    print(f"phase 8: config3 K1 bit-identical to its reference instance at "
+          f"alias 1-4; at alias 3 in turns {k1_turn_ms:.3f} ms against the "
+          f"reference's {k1_ref_ms:.3f} ms ({k1_ref_ms / k1_turn_ms:.2f}x); "
+          f"device time a launch (profiler) K1 {fmt(k1['device_ms'])}, reference "
+          f"{fmt(k1['ref_device_ms'])}; back to back (30 calls) K1 "
+          f"{k1['back_to_back_ms']:.4f} ms, reference {k1['ref_back_to_back_ms']:.4f} ms")
+    print("phase 8: config3 K1 wrapper host work, us a call: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in k1["host_us"].items()))
     times = {}
     for key in ("config3", "golden"):
         cfg = BENCH_CONFIGS[key]
@@ -1712,7 +1936,7 @@ def main() -> int:
          "launches": fwd_launches, "max_abs_err": s_fwd["max_abs_err"],
          "ms": times["config3"][0], "plain_ms": times["config3"][1],
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-         "library_ms": None},
+         **k1, "library_ms": None},
         {"name": "trace_bwd", "route": "cuda",
          "source": os.path.relpath(str(TRACE_BWD.source), ROOT),
          "replaces": "raytpu/kernels/trace_pallas.py:1248",

@@ -270,13 +270,6 @@ RT_HD void ref_pixel_grad(const SceneView& sc, const GradView& G,
   }
 }
 
-// The clamped frame pixel of set element j.
-RT_HD long long clamp_pixel(long long offset, long long j, long long stride,
-                            long long total_pixels) {
-  const long long p = offset + j * stride;
-  return p > total_pixels - 1 ? total_pixels - 1 : p;  // tail: pixel P-1
-}
-
 // Entries of a thread's own gradient table at most (LaneGrad).
 constexpr int kLaneEntries = 64;
 
@@ -497,7 +490,8 @@ GradView host_grad_view(float* gout, int n_spheres, int n_lights) {
 
 }  // namespace
 
-// The forward kernel's per-pixel function: out is (3, count).
+// The forward's per-pixel function (pixel_forward, which K1 sums a sample
+// a thread, bit for bit): out is (3, count).
 extern "C" void raytpu_trace_fwd_host(
     const float* scene, int n_spheres, const float* lights, int n_lights,
     const float* bg, float* out, long long offset, long long count,

@@ -594,6 +594,31 @@ RT_HD void trace_tree(const SceneView& sc, int max_depth, float dx, float dy,
   *eb = acc[2];
 }
 
+// The clamped frame pixel of set element j.
+RT_HD long long clamp_pixel(long long offset, long long j, long long stride,
+                            long long total_pixels) {
+  const long long p = offset + j * stride;
+  return p > total_pixels - 1 ? total_pixels - 1 : p;  // tail: pixel P-1
+}
+
+// Sample s = si * alias + sj of pixel g: the sum of its tree's emissions
+// in e (3).  pixel_forward's step for one (si, sj).
+RT_HD void sample_forward(const SceneView& sc, const Camera& cam, long long g,
+                          int s, int max_depth, float* e) {
+  float px, py, dx, dy, dz;
+  pixel_position(cam, g, &px, &py);
+  camera_dir(cam, px, py, s / cam.alias, s % cam.alias, &dx, &dy, &dz);
+  trace_tree(sc, max_depth, dx, dy, dz, &e[0], &e[1], &e[2]);
+}
+
+// One sample's emissions e added to a pixel's sum acc (3), rounded as
+// pixel_forward rounds them: taken in the order of s, this is its sum.
+RT_HD void add_sample(const Camera& cam, const float* e, float* acc) {
+  acc[0] += cam.weight * e[0];
+  acc[1] += cam.weight * e[1];
+  acc[2] += cam.weight * e[2];
+}
+
 // Pixel g's colour: the weighted sum of its alias^2 samples.
 RT_HD void pixel_forward(const SceneView& sc, const Camera& cam, long long g,
                          int max_depth, float* rgb) {

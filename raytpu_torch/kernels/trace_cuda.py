@@ -27,8 +27,8 @@ from pathlib import Path
 import torch
 
 from raytpu_torch.config import RenderConfig
-from raytpu_torch.scene import (Lights, Medium, Scene, Spheres, scene_from_leaves,
-                                scene_leaves)
+from raytpu_torch.scene import (LEAF_NAMES, Lights, Medium, Scene, Spheres,
+                                scene_from_leaves, scene_leaves)
 from raytpu_torch.trace import camera_constants, render_pixels
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -131,13 +131,15 @@ class CudaKernel:
 
 _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
+# scene, n, lights, nl, bg, out, offset, count, stride, total_pixels, width,
+# alias, max_depth, xstep, ystep, aspect, sub, half_w, half_h, zoom, weight,
+# device, stream
+_FWD_ARGS = [_p, _i, _p, _i, _p, _p, _ll, _ll, _ll, _ll, _i, _i, _i,
+             _f, _f, _f, _f, _f, _f, _f, _f, _i, _p]
 TRACE_FWD = CudaKernel(
-    "trace_fwd", "trace_fwd.cu", "raytpu_trace_fwd",
-    # scene, n, lights, nl, bg, out, offset, count, stride, total_pixels,
-    # width, alias, max_depth, xstep, ystep, aspect, sub, half_w, half_h,
-    # zoom, weight, device, stream
-    [_p, _i, _p, _i, _p, _p, _ll, _ll, _ll, _ll, _i, _i, _i,
-     _f, _f, _f, _f, _f, _f, _f, _f, _i, _p])
+    "trace_fwd", "trace_fwd.cu", "raytpu_trace_fwd", _FWD_ARGS,
+    # the previous design, the reference instance: the same arguments
+    entries={"raytpu_trace_fwd_ref": _FWD_ARGS})
 
 # scene, n, lights, nl, bg, g, gout, offset, count, stride, total_pixels,
 # width, alias, max_depth, xstep, ystep, aspect, sub, half_w, half_h, zoom,
@@ -200,6 +202,17 @@ def dense_takes(scene, cfg: RenderConfig) -> bool:
             and scene.lights.count <= MAX_LIGHTS)
 
 
+# Every scene tensor the kernels read: (group, field, its shape after the
+# group's count, or None for the background's fixed shape).
+_SCENE_FIELDS = (("spheres", "pos", (3,)), ("spheres", "radius", ()),
+                 ("spheres", "matte", (3,)), ("spheres", "gloss", (3,)),
+                 ("spheres", "opacity", ()), ("spheres", "ior", ()),
+                 ("lights", "pos", (3,)), ("lights", "col", (3,)),
+                 ("bg", "matte", None), ("bg", "ior", None),
+                 ("bg", "opacity", None))
+_BG_SHAPES = {"matte": (3,), "ior": (), "opacity": ()}
+
+
 def _check_scene(scene, device, bounded: bool = True):
     """Raise on any scene the kernels do not take.  `bounded`: the bounds
     of the kernels that stage the scene in shared memory (K1, K2 and the
@@ -211,19 +224,16 @@ def _check_scene(scene, device, bounded: bool = True):
                          f"spheres, got {n}")
     if nl < 0 or bounded and nl > MAX_LIGHTS:
         raise ValueError(f"the kernel takes 0..{MAX_LIGHTS} lights, got {nl}")
-    shapes = {"spheres.pos": (n, 3), "spheres.radius": (n,),
-              "spheres.matte": (n, 3), "spheres.gloss": (n, 3),
-              "spheres.opacity": (n,), "spheres.ior": (n,),
-              "lights.pos": (nl, 3), "lights.col": (nl, 3),
-              "bg.matte": (3,), "bg.ior": (), "bg.opacity": ()}
-    for key, shape in shapes.items():
-        group, name = key.split(".")
+    counts = {"spheres": (n,), "lights": (nl,)}
+    for group, name, tail in _SCENE_FIELDS:
         t = getattr(getattr(scene, group), name)
-        if t.device != device:
-            raise ValueError(f"{key} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{key} is {t.dtype}, the kernel takes float32")
-        if tuple(t.shape) != shape:
+        shape = _BG_SHAPES[name] if tail is None else counts[group] + tail
+        if t.device != device or t.dtype != torch.float32 or t.shape != shape:
+            key = f"{group}.{name}"
+            if t.device != device:
+                raise ValueError(f"{key} is on {t.device}, expected {device}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"{key} is {t.dtype}, the kernel takes float32")
             raise ValueError(f"{key} has shape {tuple(t.shape)}, expected {shape}")
 
 
@@ -234,33 +244,54 @@ def _cuda_device(scene, name: str):
     return device
 
 
-def render_pixels_cuda(scene, cfg: RenderConfig, offset: int = 0,
-                       count: int | None = None, stride: int = 1):
-    """Render the pixels {offset + j*stride : j < count} -> (count, 3).
-
-    On a CUDA scene this launches the kernel (or raises); on a CPU scene it
-    runs the plain version."""
-    device = _cuda_device(scene, "render_pixels_cuda")
-    if device.type == "cpu":
-        return render_pixels_torch(scene, cfg, offset, count, stride)
+def _fwd_launch(entry: str, scene, cfg: RenderConfig, offset: int, count,
+                stride: int, tables=None):
+    """Launch `entry` of K1's library on a CUDA scene -> (count, 3), or
+    raise on what the kernel does not take.  `tables`: scene_tables(scene),
+    where the caller has them."""
+    device = _cuda_device(scene, entry)
     offset, count, stride = _pixel_set(cfg, offset, count, stride)
     _check_depth(cfg)
     _check_scene(scene, device)
     out = torch.empty((3, count), dtype=torch.float32, device=device)
     if count == 0:
         return out.T
-    spheres_tbl, lights_tbl, bg_tbl = scene_tables(scene)
-    cam = camera_constants(cfg)
-    fn = TRACE_FWD.function()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(spheres_tbl.data_ptr(), scene.spheres.count, lights_tbl.data_ptr(),
-             scene.lights.count, bg_tbl.data_ptr(), out.data_ptr(),
-             offset, count, stride, cfg.num_pixels, cfg.width,
-             cfg.alias_factor, cfg.max_depth, *cam, device.index or 0, stream)
+    spheres_tbl, lights_tbl, bg_tbl = tables or scene_tables(scene)
+    err = TRACE_FWD.function(entry)(
+        spheres_tbl.data_ptr(), scene.spheres.count, lights_tbl.data_ptr(),
+        scene.lights.count, bg_tbl.data_ptr(), out.data_ptr(), offset, count,
+        stride, cfg.num_pixels, cfg.width, cfg.alias_factor, cfg.max_depth,
+        *camera_constants(cfg), device.index or 0,
+        torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"trace_fwd launch failed: CUDA error {err}")
-    TRACE_FWD.launches += 1
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    if entry == TRACE_FWD.symbol:
+        TRACE_FWD.launches += 1
     return out.T
+
+
+def render_pixels_cuda(scene, cfg: RenderConfig, offset: int = 0,
+                       count: int | None = None, stride: int = 1, tables=None):
+    """Render the pixels {offset + j*stride : j < count} -> (count, 3).
+
+    On a CUDA scene this launches the kernel (or raises); on a CPU scene it
+    runs the plain version.  `tables`: scene_tables(scene), where the
+    caller has built them."""
+    if _cuda_device(scene, "render_pixels_cuda").type == "cpu":
+        return render_pixels_torch(scene, cfg, offset, count, stride)
+    return _fwd_launch(TRACE_FWD.symbol, scene, cfg, offset, count, stride,
+                       tables)
+
+
+def render_pixels_reference(scene, cfg: RenderConfig, offset: int = 0,
+                            count: int | None = None, stride: int = 1):
+    """render_pixels_cuda through K1's reference instance, the previous
+    design (one thread per pixel walking its alias^2 trees in a row), on a
+    CUDA scene: what the kernel is held to, bit for bit, and timed
+    against.  Not counted in TRACE_FWD.launches, and never on the main
+    path."""
+    return _fwd_launch("raytpu_trace_fwd_ref", scene, cfg, offset, count,
+                       stride)
 
 
 def render_image_cuda(scene, cfg: RenderConfig):
@@ -326,9 +357,10 @@ def grad_pixels_torch(scene, cfg: RenderConfig, g, offset: int = 0,
 
 
 def _grad_launch(entry: str, scene, cfg: RenderConfig, g, offset: int,
-                 count, stride: int) -> Scene:
+                 count, stride: int, tables=None) -> Scene:
     """Launch `entry` of K2's library on a CUDA scene; returns the gradient
-    Scene, or raises on what the kernel does not take."""
+    Scene, or raises on what the kernel does not take.  `tables`:
+    scene_tables(scene), where the caller has them."""
     device = _cuda_device(scene, entry)
     offset, count, stride = _pixel_set(cfg, offset, count, stride)
     _check_depth(cfg)
@@ -344,7 +376,7 @@ def _grad_launch(entry: str, scene, cfg: RenderConfig, g, offset: int,
                        dtype=torch.float32, device=device)
     if count > 0:
         g_t = g.T.contiguous()  # (3, count), as the forward writes
-        spheres_tbl, lights_tbl, bg_tbl = scene_tables(scene)
+        spheres_tbl, lights_tbl, bg_tbl = tables or scene_tables(scene)
         cam = camera_constants(cfg)
         fn = TRACE_BWD.function(entry)
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -361,7 +393,8 @@ def _grad_launch(entry: str, scene, cfg: RenderConfig, g, offset: int,
 
 
 def grad_pixels_cuda(scene, cfg: RenderConfig, g, offset: int = 0,
-                     count: int | None = None, stride: int = 1) -> Scene:
+                     count: int | None = None, stride: int = 1,
+                     tables=None) -> Scene:
     """The scene gradient of sum(render_pixels(pixels) * g) for the pixels
     {offset + j*stride : j < count}, clamped to P-1, with g (count, 3).
 
@@ -369,10 +402,12 @@ def grad_pixels_cuda(scene, cfg: RenderConfig, g, offset: int = 0,
     scene it runs the plain version.  Every j < count is a rendered pixel and
     takes its own g (the TPU kernel's zero-cotangent pad lanes do not exist
     here).  The kernel sums with atomics, so the last bits vary between
-    runs."""
+    runs.  `tables`: scene_tables(scene), where the caller has built
+    them."""
     if _cuda_device(scene, "grad_pixels_cuda").type == "cpu":
         return grad_pixels_torch(scene, cfg, g, offset, count, stride)
-    return _grad_launch(TRACE_BWD.symbol, scene, cfg, g, offset, count, stride)
+    return _grad_launch(TRACE_BWD.symbol, scene, cfg, g, offset, count, stride,
+                        tables)
 
 
 def grad_pixels_reference(scene, cfg: RenderConfig, g, offset: int = 0,
@@ -390,20 +425,26 @@ class RenderPixelsFn(torch.autograd.Function):
     (the forward kernel on a CUDA scene), backward grad_pixels_cuda (the
     backward kernel) — the counterpart of raytpu's render_pixels_pallas_ad.
     The tensor inputs are the 11 scene leaves in scene_leaves order, so
-    autograd routes each leaf its own gradient."""
+    autograd routes each leaf its own gradient.  The scene tables are built
+    once, in the forward, and saved for the backward's kernel (autograd's
+    version check on the saved leaves still catches an in-place update
+    between the two)."""
 
     @staticmethod
     def forward(ctx, cfg, offset, count, stride, *leaves):
         ctx.cfg = cfg
         ctx.pixels = (offset, count, stride)
-        ctx.save_for_backward(*leaves)
-        return render_pixels_cuda(scene_from_leaves(leaves), cfg, offset, count,
-                                  stride)
+        scene = scene_from_leaves(leaves)
+        tables = scene_tables(scene) if scene.device.type == "cuda" else None
+        ctx.save_for_backward(*leaves, *(tables or ()))
+        return render_pixels_cuda(scene, cfg, offset, count, stride, tables)
 
     @staticmethod
     def backward(ctx, g):
-        scene = scene_from_leaves(ctx.saved_tensors)
-        grads = grad_pixels_cuda(scene, ctx.cfg, g, *ctx.pixels)
+        saved = ctx.saved_tensors
+        scene = scene_from_leaves(saved[:len(LEAF_NAMES)])
+        grads = grad_pixels_cuda(scene, ctx.cfg, g, *ctx.pixels,
+                                 tables=saved[len(LEAF_NAMES):] or None)
         return (None, None, None, None, *scene_leaves(grads))
 
 

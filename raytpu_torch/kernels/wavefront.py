@@ -17,10 +17,11 @@ camera rays and each chunk level by level:
     BVH (kernels/bvh.py, built once per frame beside scene_tables); on the
     training path it also writes the node's selections `sel`;
   * K5, `compact` (csrc/wf_compact.cu; it replaces wavefront.py:
-    _make_cursor_copy_kernel and the sorts around it): a stable prefix-sum
-    stream compaction of the live children (intensity not all exactly
-    zero) into a static capacity, with their pixel slot ids; the slots
-    past the kept prefix hold zero state.  Live children past capacity are
+    _make_cursor_copy_kernel and the sorts around it): a single-pass
+    stable stream compaction (a prefix sum with decoupled look-back) of
+    the live children (intensity not all exactly zero) into a static
+    capacity, with their pixel slot ids; the slots past the kept prefix
+    hold zero state.  Live children past capacity are
     dropped and counted exactly.
 
 Compaction is exact: a dead child carries zero intensity, and a ray of zero
@@ -104,13 +105,14 @@ WF_LEVEL = CudaKernel(
                                      _p, _i, _p]})
 
 WF_COMPACT = CudaKernel(
-    "wf_compact", "wf_compact.cu", "raytpu_wf_count",
-    # children, kids, counts, device, stream
-    [_p, _ll, _p, _i, _p],
-    # children, kids, pid, starts, total, cap, n_slots, out, out_pid, dst,
-    # device, stream
-    entries={"raytpu_wf_scatter": [_p, _ll, _p, _p, _p, _ll, _i, _p, _p, _p,
-                                   _i, _p]})
+    "wf_compact", "wf_compact.cu", "raytpu_wf_compact",
+    # children, kids, pid, cap, out, out_pid, dst, scratch, words, device,
+    # stream
+    [_p, _ll, _p, _ll, _p, _p, _p, _p, _ll, _i, _p],
+    # the tail: scratch, cap, n_slots, out, out_pid, device, stream; and the
+    # children a tile, which sizes the scratch
+    entries={"raytpu_wf_compact_tail": [_p, _ll, _i, _p, _p, _i, _p],
+             "raytpu_wf_compact_tile": []})
 
 # scene, n, lights, nl, bg, state, rays, spawn, em_ct, ch_ct, sel, d_state,
 # gout, device, stream
@@ -124,8 +126,6 @@ WF_UNCOMPACT = CudaKernel(
     "wf_uncompact", "wf_uncompact.cu", "raytpu_wf_uncompact",
     # d_state, cap, dst, kids, d_children, device, stream
     [_p, _ll, _p, _ll, _p, _i, _p])
-
-_COUNT_BLOCK = 1024  # children per block of wf_count_kernel
 
 
 def _align_up(n: int, m: int) -> int:
@@ -426,9 +426,11 @@ def compact_torch(children, pid, cap: int, n_slots: int, return_dst: bool = Fals
 
 
 def compact(children, pid, cap: int, n_slots: int, return_dst: bool = False):
-    """compact_torch's function; on CUDA tensors it launches K5 (a count
-    kernel, a cumulative sum of the block counts, a scatter kernel) or
-    raises.  Without `return_dst` the scatter writes no destination index."""
+    """compact_torch's function; on CUDA tensors it launches K5 (the
+    single-pass scan, then the tail kernel, with no host read or PyTorch
+    op between them) or raises.  dropped and n_kept are 0-d views of the
+    kernels' scratch.  Without `return_dst` the scan writes no destination
+    index."""
     device = children.device
     if device.type == "cpu":
         return compact_torch(children, pid, cap, n_slots, return_dst)
@@ -436,36 +438,30 @@ def compact(children, pid, cap: int, n_slots: int, return_dst: bool = False):
         raise ValueError(f"compact takes CPU or CUDA tensors, got {device}")
     _check_compact(children, pid, cap, n_slots, device)
     kids = children.shape[1]
-    blocks = -(-kids // _COUNT_BLOCK)
-    counts = torch.empty(blocks, dtype=torch.int32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    dev = device.index or 0
-    if kids > 0:
-        err = WF_COMPACT.function("raytpu_wf_count")(
-            children.data_ptr(), kids, counts.data_ptr(), dev, stream)
-        if err != 0:
-            raise RuntimeError(f"wf_count launch failed: CUDA error {err}")
-        WF_COMPACT.launches += 1
-        incl = torch.cumsum(counts, dim=0, dtype=torch.int64)
-        starts = incl - counts
-        total = incl[-1]
-    else:
-        starts = torch.zeros(1, dtype=torch.int64, device=device)
-        total = torch.zeros((), dtype=torch.int64, device=device)
+    tile = WF_COMPACT.function("raytpu_wf_compact_tile")()
+    # dropped, n_kept, the tiles' ticket and one status word a tile
+    scratch = torch.empty(3 + -(-kids // tile), dtype=torch.int64, device=device)
     state = torch.empty((N_STATE, cap), dtype=torch.float32, device=device)
     out_pid = torch.empty(cap, dtype=torch.int32, device=device)
     dst = torch.empty(kids, dtype=torch.int32, device=device) if return_dst else None
-    if max(kids, cap) > 0:
-        err = WF_COMPACT.function("raytpu_wf_scatter")(
-            children.data_ptr(), kids, pid.data_ptr(), starts.data_ptr(),
-            total.data_ptr(), cap, n_slots, state.data_ptr(),
-            out_pid.data_ptr(), dst.data_ptr() if return_dst else None, dev,
-            stream)
-        if err != 0:
-            raise RuntimeError(f"wf_scatter launch failed: CUDA error {err}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    dev = device.index or 0
+    err = WF_COMPACT.function()(
+        children.data_ptr(), kids, pid.data_ptr(), cap, state.data_ptr(),
+        out_pid.data_ptr(), dst.data_ptr() if return_dst else None,
+        scratch.data_ptr(), scratch.numel(), dev, stream)
+    if err != 0:
+        raise RuntimeError(f"wf_compact launch failed: CUDA error {err}")
+    if kids > 0:
         WF_COMPACT.launches += 1
-    out = (state, out_pid, torch.clamp(total - cap, min=0),
-           torch.clamp(total, max=cap))
+    if cap > 0:
+        err = WF_COMPACT.function("raytpu_wf_compact_tail")(
+            scratch.data_ptr(), cap, n_slots, state.data_ptr(),
+            out_pid.data_ptr(), dev, stream)
+        if err != 0:
+            raise RuntimeError(f"wf_compact_tail launch failed: CUDA error {err}")
+        WF_COMPACT.launches += 1
+    out = (state, out_pid, scratch[0], scratch[1])
     return (*out, dst) if return_dst else out
 
 

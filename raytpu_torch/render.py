@@ -32,14 +32,15 @@ from raytpu_torch.utils.profiling import Timer
 
 # The "auto" crossover on an NVIDIA H100 80GB HBM3 at 700 W: the wavefront
 # where spheres x depth reaches _WF_MIN_WORK.  chip_smoke.py phase 12 at
-# 640x480 3x3 with 2M-ray chunks (PERF.md) timed the wavefront
-# against K1 in ten cells: it lost at N x d of 128 and less (N=3..64,
-# 1.2-8.8x K1's time) and won at 256 and more (N=64..256, 0.40-0.74x).
-# raytpu's N x 2^d does not separate them here: N=16 at depth 6 (1024)
-# lost 3.0x, N=128 at depth 2 (512) won.  With the 4M-ray chunks below
-# the wavefront also won the two cells at 128 (0.86x and 0.94x): this
-# bound is on the safe side of them.
-_WF_MIN_WORK = 256
+# 640x480 3x3 with 4M-ray chunks (PERF.md) times the wavefront against K1
+# in ten cells.  Since K1 traces a thread a camera sample, K1 wins
+# every cell of N x d 384 and less (N=3..128, 1.12-38x K1's time; N=128 d2
+# 1.12x, N=64 d4 1.81x, N=64 d6 1.73x) and the wavefront the two of 512
+# and more (N=256 d2 0.62x, d4 0.50x) and config 5 (0.65x).  With the
+# previous K1 (a thread a pixel) the split was at 256; N x d between 384
+# and 512 is not measured.  raytpu's N x 2^d does not separate the cells:
+# N=16 at depth 6 (1024) loses 13x.
+_WF_MIN_WORK = 512
 
 
 def _wf_wins(n_spheres: int, depth: int) -> bool:
@@ -50,18 +51,18 @@ def _wf_wins(n_spheres: int, depth: int) -> bool:
 # PERF.md): one loss_and_grad step through the differentiable wavefront
 # (K3 + K5 forward, K4 + K6 backward, 4M-ray chunks) against the kernel
 # pair (K1 + K2, K2 a tree a camera sample), in turns, at 640x480 3x3.
-# The pair won the cells of N x depth 96 and less (N=3 d4, config 3's: the
-# wavefront 4.05-4.98x the pair's time over three reads; N=16 d4 2.60x, d6
-# 3.35x), the two at 128 split (N=64 d2 0.974x, N=32 d4 1.082x), and the
-# wavefront won 256 and more (0.14-0.45x) and config 5 (0.20x): the render
-# rule's _WF_MIN_WORK.  Frames below 640x480 3x3 were not measured; there
-# the pair stays.
+# The pair won the cells of N x depth 128 and less (N=3 d4, config 3's: the
+# wavefront 4.7-5.3x the pair's time over three reads; N=16 d4 3.8x, d6
+# 4.2x; N=64 d2 1.65x, N=32 d4 1.78x), and the wavefront won 256 and more
+# (0.25-0.81x) and config 5 (0.32x).  Frames below 640x480 3x3 were not
+# measured; there the pair stays.
 _WF_MIN_TRAIN_RAYS = 640 * 480 * 9
+_WF_MIN_TRAIN_WORK = 256
 
 
 def _wf_wins_train(n_spheres: int, cfg: RenderConfig) -> bool:
     return (cfg.rays_per_frame >= _WF_MIN_TRAIN_RAYS
-            and _wf_wins(n_spheres, cfg.max_depth))
+            and n_spheres * cfg.max_depth >= _WF_MIN_TRAIN_WORK)
 
 
 def resolve_backend(backend: str = "auto", device="cpu", scene=None,

@@ -16,6 +16,7 @@ The arithmetic is float32 throughout, as in raytpu.trace.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -39,9 +40,12 @@ class CameraConstants(NamedTuple):
     weight: float  # 1 / alias^2
 
 
+@functools.lru_cache(maxsize=64)
 def camera_constants(cfg: RenderConfig) -> CameraConstants:
     """The camera scalars rounded in float32 as raytpu.trace computes them
-    (xstep = f32(16) / f32(W), ...); the CUDA kernel takes the same values."""
+    (xstep = f32(16) / f32(W), ...); the CUDA kernel takes the same values.
+    A pure function of the frozen config, so computed once per config:
+    every kernel launch reads it."""
     f32 = np.float32
     w, h = f32(cfg.width), f32(cfg.height)
     xstep = f32(cfg.image_world_width) / w

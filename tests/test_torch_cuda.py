@@ -41,6 +41,7 @@ from raytpu_torch.kernels.trace_cuda import (grad_pixels_cuda,
                                              grad_pixels_torch,
                                              render_pixels_cuda,
                                              render_pixels_cuda_ad,
+                                             render_pixels_reference,
                                              render_pixels_torch)
 from raytpu_torch.render import render_single, resolve_backend
 from raytpu_torch.scene import (default_scene, random_scene, scene_from_leaves,
@@ -538,6 +539,107 @@ def test_backward_kernel_matches_its_reference(dev, case):
     for a, w in zip(scene_leaves(got), scene_leaves(want)):
         assert torch.isfinite(a).all()
         assert float((a - w).abs().max()) <= 1e-5 * max(float(w.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("case", ["a1", "a2", "a3", "a4", "stride", "a12",
+                                  "N4096_L1024"])
+def test_forward_kernel_matches_its_reference(dev, case):
+    """K1 (a thread a camera sample, the samples summed in pixel_forward's
+    order) against its reference instance, the previous design (a thread a
+    pixel): bit for bit, at alias 1-4, on a strided set with a clamped
+    tail, at alias 12 (two rounds of a block's 128 sample slots a pixel)
+    and at the largest tables the kernel takes."""
+    scene, cfg, sel = {
+        "a1": (default_scene(device=dev),
+               RenderConfig(width=64, height=32, max_depth=3, alias_factor=1), {}),
+        "a2": (random_scene(32, seed=3, device=dev),
+               RenderConfig(width=64, height=32, max_depth=2, alias_factor=2), {}),
+        "a3": (default_scene(device=dev),
+               RenderConfig(width=64, height=32, max_depth=4, alias_factor=3), {}),
+        "a4": (default_scene(device=dev),
+               RenderConfig(width=50, height=17, max_depth=3, alias_factor=4), {}),
+        "stride": (default_scene(device=dev),
+                   RenderConfig(width=64, height=32, max_depth=2, alias_factor=3),
+                   dict(offset=5, stride=3, count=701)),
+        "a12": (default_scene(device=dev),
+                RenderConfig(width=16, height=8, max_depth=2, alias_factor=12),
+                dict(offset=3, stride=5, count=29)),
+        "N4096_L1024": (random_scene(trace_cuda.MAX_SPHERES,
+                                     num_lights=trace_cuda.MAX_LIGHTS, seed=4,
+                                     device=dev),
+                        RenderConfig(width=8, height=4, max_depth=1, alias_factor=2), {}),
+    }[case]
+    before = trace_cuda.TRACE_FWD.launches
+    got = render_pixels_cuda(scene, cfg, **sel)
+    want = render_pixels_reference(scene, cfg, **sel)
+    torch.cuda.synchronize()
+    assert trace_cuda.TRACE_FWD.launches == before + 1  # the reference is not counted
+    assert torch.isfinite(got).all()
+    assert torch.equal(_bits(got.contiguous()), _bits(want.contiguous()))
+
+
+def _seeded_children(parents, live_frac, seed, dev):
+    """(10, 2 * parents) children as K3 writes them (a dead child is ten
+    exact zeros) and the parents' pids, on the card."""
+    rng = np.random.default_rng(seed)
+    kids = 2 * parents
+    ch = rng.normal(size=(10, kids)).astype(np.float32)
+    ch[9] = rng.integers(-1, 8, kids)
+    ch[6:9][:, rng.random(kids) < 0.5] = 0.0
+    ch[6 + rng.integers(0, 3, kids), np.arange(kids)] = 0.5 + rng.random(kids)
+    ch[:, rng.random(kids) >= live_frac] = 0.0
+    pid = rng.integers(0, 1 << 20, parents).astype(np.int32)
+    return torch.from_numpy(ch).to(dev), torch.from_numpy(pid).to(dev)
+
+
+COMPACT_CASES = {
+    # name: (parents, live fraction, capacity)
+    "no children": (0, 0.5, 4096),
+    "less than a tile": (300, 0.6, 1024),
+    "every child dead": (3000, 0.0, 2048),
+    "every child live": (3000, 1.0, 8192),
+    "capacity below the live count": (5000, 0.7, 3000),
+    "capacity above the children": (1000, 0.5, 9000),
+    "a long look-back chain": (1 << 21, 0.45, 1 << 21),
+}
+
+
+@pytest.mark.parametrize("with_dst", [False, True])
+@pytest.mark.parametrize("case", sorted(COMPACT_CASES))
+def test_compaction_edge_cases(dev, case, with_dst):
+    """K5 (the single-pass scan and the tail) bit for bit against
+    compact_torch; the scan launches only where there are children."""
+    parents, live_frac, cap = COMPACT_CASES[case]
+    children, pid = _seeded_children(parents, live_frac, len(case), dev)
+    before = wavefront.WF_COMPACT.launches
+    got = wavefront.compact(children, pid, cap, 37, return_dst=with_dst)
+    torch.cuda.synchronize()
+    assert wavefront.WF_COMPACT.launches == before + (parents > 0) + (cap > 0)
+    want = wavefront.compact_torch(children, pid, cap, 37, return_dst=with_dst)
+    assert len(got) == len(want)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+def test_compactions_back_to_back_on_one_stream(dev):
+    """Compactions enqueued one after another with no synchronisation, the
+    first one's outputs freed so that the allocator may hand its scratch
+    (status words and ticket) to the next: each still equals
+    compact_torch."""
+    inputs = [_seeded_children(40000 + 999 * k, 0.3 + 0.2 * k, 50 + k, dev)
+              for k in range(3)]
+    wants = [wavefront.compact_torch(ch, pid, 50000, 101, return_dst=True)
+             for ch, pid in inputs]
+    torch.cuda.synchronize()
+    kept = []
+    for rep in range(2):
+        for (ch, pid), want in zip(inputs, wants):
+            got = wavefront.compact(ch, pid, 50000, 101, return_dst=True)
+            if rep == 1:
+                kept.append((got, want))
+            del got
+    torch.cuda.synchronize()
+    for got, want in kept:
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
 
 
 def test_auto_renders_beyond_the_dense_bounds(dev):
