@@ -110,7 +110,22 @@ result lines):
      version and each gradient under the gradient contract; the CLI at
      depth 10; image_loss and exposure_image_loss with a strided gid on a
      CUDA scene against the CPU.
-The last three lines are nvidia-smi's, the kernels JSON and
+ 17. the sharded paths (raytpu_torch.parallel): a 1-rank "nccl" group in
+     this process renders config 5 through render_sharded (interleaved,
+     the wavefront, no drop, the frame under the wavefront contract against
+     phase 11's) and takes one loss_and_grad_sharded step (no drop; loss
+     rtol 1e-5 and every leaf within 2e-3 x scale of the one-device step;
+     both timed); two "gloo" ranks sharing the card
+     (raytpu_torch.tools.multiprocess_demo's "card" suite), block and
+     interleaved: the config-3 frame through K1 bit for bit against
+     render_single, the config-3 step through K1 + K2 and the config-5
+     step through the wavefront, each within those tolerances of the
+     one-device step, the drops summed, the config-5 step's time and peak
+     memory per rank; and `torch.distributed.run --nproc-per-node 1 -m
+     raytpu_torch.cli --sharded --interleave`, the golden PPM byte for
+     byte against phase 6's.  Each path's kernels must have launched.
+The last three lines are nvidia-smi's, the kernels JSON (each kernel's
+"sharded_launches": its launches on phase 17's paths) and
 {"ok": true, "device": ...}.
 """
 
@@ -970,7 +985,7 @@ def wavefront_phases(dev, count_lib):
           "work": work_note, "frame_ms": wf_ms, "ref_other_scenes": other}
     k5 = {"launches": l5, "max_abs_err": 0.0, "ms": k5_ms, "plain_ms": k5_plain,
           "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "work": work_note}
-    return k3, k5
+    return k3, k5, img
 
 
 def seeded_level_cotangents(scene, state, spawn, seed, tables):
@@ -1570,6 +1585,133 @@ def fault_phase(dev):
     return out
 
 
+def sharded_phase(dev, frame11, golden_ppm):
+    """Phase 17: the sharded paths.  A 1-rank "nccl" group in this process
+    renders config 5 through render_sharded and takes one
+    loss_and_grad_sharded step; two "gloo" ranks sharing the card (the
+    multiprocess demo's "card" suite) render config 3 through K1 and step
+    config 3 through K1 + K2 and config 5 through the wavefront; torchrun
+    runs the CLI's --sharded --interleave golden render.  Returns each
+    kernel's launches over this phase's paths (the rank-0 worker's and this
+    process's)."""
+    import torch
+    import torch.distributed as dist
+
+    import raytpu_torch.render as render
+    from raytpu_torch import grad
+    from raytpu_torch.config import BENCH_CONFIGS
+    from raytpu_torch.examples.fit_scene import perturb
+    from raytpu_torch.kernels.trace_cuda import TRACE_BWD, TRACE_FWD
+    from raytpu_torch.kernels.wavefront import (WF_COMPACT, WF_LEVEL,
+                                                WF_LEVEL_BWD, WF_UNCOMPACT)
+    from raytpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from raytpu_torch.scene import random_scene, scene_leaves
+    from raytpu_torch.tools import multiprocess_demo as demo
+
+    kernels = (TRACE_FWD, TRACE_BWD, WF_LEVEL, WF_COMPACT, WF_LEVEL_BWD,
+               WF_UNCOMPACT)
+    launches = dict.fromkeys((k.name for k in kernels), 0)
+
+    def counted(fn):
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k.name: k.launches for k in kernels}
+        for name, n in got.items():
+            launches[name] += n
+        return out, got
+
+    c5 = BENCH_CONFIGS["config5"]
+    truth = random_scene(256, seed=3, device=dev)
+    start = perturb(truth, geometry=False)
+    target = torch.from_numpy(frame11).reshape(-1, 3).to(dev)
+    first = render._wf_auto_trials(None, train=True)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed("file://" + os.path.join(tmp, "rendezvous"), 1, 0,
+                               backend="nccl")
+        try:
+            mesh = make_mesh(dev)
+            check((mesh.size, mesh.backend) == (1, "nccl"), f"mesh {mesh}")
+            (img, info), got = counted(lambda: render.render_sharded(
+                truth, c5, mesh, "wavefront", return_info=True, on_drop="raise",
+                interleave=True))
+            check(info["dropped"] == 0, f"sharded config-5 frame dropped {info}")
+            check(got["wf_level"] > 0 and got["wf_compact"] > 0,
+                  f"the sharded render launched {got}")
+            s17 = wavefront_contract(img.cpu().numpy(), frame11)
+            (loss, grads, sinfo), got_step = counted(lambda: grad.loss_and_grad_sharded(
+                start, c5, target, mesh, "wavefront", True, first,
+                return_info=True))
+            check(sinfo["dropped"] == 0, f"sharded config-5 step dropped {sinfo}")
+            check(all(got_step[k] > 0 for k in ("wf_level", "wf_compact",
+                                                 "wf_level_bwd", "wf_uncompact")),
+                  f"the sharded step launched {got_step}")
+            loss1, grads1 = grad.loss_and_grad_wavefront(start, c5, target, **first)
+            rel = abs(float(loss) - float(loss1)) / abs(float(loss1))
+            worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(scene_leaves(grads), scene_leaves(grads1)))
+            check(rel <= 1e-5 and worst <= 2e-3,
+                  f"1-rank sharded step vs one device: loss rel {rel}, leaf {worst}")
+            sharded_ms, _ = events_ms(lambda: grad.loss_and_grad_sharded(
+                start, c5, target, mesh, "wavefront", True, first), reps=3)
+            single_ms, _ = events_ms(lambda: grad.loss_and_grad_wavefront(
+                start, c5, target, **first), reps=3)
+        finally:
+            dist.destroy_process_group()
+    print(f"phase 17: 1-rank nccl group, config5 render_sharded(interleave) "
+          f"wavefront: launches {got}; dropped 0; vs phase 11's frame outliers "
+          f"{s17['outliers']:.6f} mean/scale {s17['mean_over_scale']:.3e}; "
+          f"loss_and_grad_sharded step: launches {got_step}, dropped 0, loss rel "
+          f"{rel:.2e}, worst leaf {worst:.2e} vs one device; step {sharded_ms:.3f} "
+          f"ms against {single_ms:.3f} ms one device")
+
+    torch.cuda.empty_cache()  # the two ranks share this card's memory
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        results = demo.spawn("card", procs=2, device=str(dev), dist_backend="gloo",
+                             out_dir=tmp, timeout=480)
+        spawn_s = time.perf_counter() - t0
+    want = {"render": ("trace_fwd",), "grad_cuda": ("trace_fwd", "trace_bwd"),
+            "grad_wavefront": ("wf_level", "wf_compact", "wf_level_bwd",
+                               "wf_uncompact")}
+    for case in demo.SUITES["card"]:
+        sm = demo.case_summary(results, case)
+        check(sm["ok"], f"2 gloo ranks: {case['name']}: {sm}")
+        kind = "render" if case["kind"] == "render" else case["name"].rsplit("_", 1)[0]
+        check(all(sm["launches"][k] > 0 for k in want[kind]),
+              f"{case['name']} launched {sm['launches']}")
+        for name, n in sm["launches"].items():
+            launches[name] += n
+        line = {k: v for k, v in sm.items() if k not in ("ok",)}
+        print(f"phase 17: 2 gloo ranks on one card, {json.dumps(line)}")
+    print(f"phase 17: the two ranks' run took {spawn_s:.1f} s (process start "
+          f"included); two ranks time-slice one card, so no scaling is measured")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ppm = os.path.join(tmp, "golden_sharded.ppm")
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "raytpu_torch.cli", "--sharded",
+             "--interleave", "--time", "-o", ppm], cwd=tmp, env=env,
+            capture_output=True, text=True, timeout=300)
+        check(res.returncode == 0, f"torchrun cli: {res.stdout}{res.stderr}")
+        with open(ppm, "rb") as f:
+            sharded = f.read()
+    stats = json.loads([line for line in res.stdout.splitlines()
+                        if line.startswith("{")][-1])
+    check(sharded == golden_ppm, "the torchrun --sharded --interleave golden PPM "
+          "differs from phase 6's")
+    check((stats["ranks"], stats["interleave"], stats["dropped"]) == (1, True, 0),
+          f"torchrun cli --time: {stats}")
+    print(f"phase 17: torchrun --nproc-per-node 1 cli --sharded --interleave "
+          f"--time golden 800x600 d5 a3 (nccl): PPM byte-identical to phase "
+          f"6's ({len(sharded)} bytes); {stats['backend']} "
+          f"{stats['seconds'] * 1e3:.3f} ms a frame, gather included")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1751,6 +1893,8 @@ def main() -> int:
         check(np.isfinite(img).all(), "the CLI's image is not finite")
         check((read_ppm(ppm) == tone_map(img)).all(),
               "the PPM on disk is not the rendered frame")
+        with open(ppm, "rb") as f:
+            golden_ppm = f.read()
     plain = render.render_single(default_scene(device=dev), golden, backend="torch")
     s_main = contract(img, plain.cpu().numpy())
     ref = render_pixels_reference(default_scene(device=dev), golden)
@@ -1923,13 +2067,14 @@ def main() -> int:
                                          ("trace_bwd", bwd_bound)):
         print(f"phase 9: {label} bound {ms:.4f} ms by {by} ({ops / 1e9:.3f} "
               f"GFLOP at 67 TFLOP/s, {nbytes / 1e6:.3f} MB at 3.35 TB/s)")
-    k3, k5 = wavefront_phases(dev, count_lib)
+    k3, k5, frame11 = wavefront_phases(dev, count_lib)
     k4, k6 = training_phases(dev)
     fault_phase(dev)
+    sharded = sharded_phase(dev, frame11, golden_ppm)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
-    print(json.dumps({"kernels": [
+    entries = [
         {"name": "trace_fwd", "route": "cuda",
          "source": os.path.relpath(str(TRACE_FWD.source), ROOT),
          "replaces": "raytpu/kernels/trace_pallas.py:798",
@@ -1958,7 +2103,10 @@ def main() -> int:
          "replaces": "raytpu/kernels/wavefront.py:265", **k4},
         {"name": "wf_uncompact", "route": "cuda",
          "source": os.path.relpath(str(WF_UNCOMPACT.source), ROOT),
-         "replaces": "raytpu/kernels/wavefront.py:591", **k6}]}))
+         "replaces": "raytpu/kernels/wavefront.py:591", **k6}]
+    for e in entries:  # launches on phase 17's sharded paths
+        e["sharded_launches"] = sharded[e["name"]]
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

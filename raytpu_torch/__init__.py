@@ -14,23 +14,31 @@ Public surface:
                             wavefront's level and compaction and their
                             backwards), their plain versions, the autograd
                             Functions pairing them, and the wavefront tracer
-    raytpu_torch.render     backend choice, one-device render with the
-                            wavefront's capacity ladder, CUDA-event timing
-    raytpu_torch.grad       losses, scene gradient, fit, finite differences
-    raytpu_torch.utils      CUDA-event timer, fit checkpoints
+    raytpu_torch.render     backend choice, one-device and sharded render
+                            with the wavefront's capacity ladder, CUDA-event
+                            timing
+    raytpu_torch.grad       losses, scene gradient (one device or sharded),
+                            fit, finite differences
+    raytpu_torch.parallel   the pixel mesh and its collectives on
+                            torch.distributed
+    raytpu_torch.utils      CUDA-event timer, fit checkpoints, checked render
     raytpu_torch.cli        command-line driver
-    raytpu_torch.examples   runnable examples (fit_scene)
+    raytpu_torch.examples   runnable examples (fit_scene, fit_golden_scene,
+                            animate)
+    raytpu_torch.tools      kernel and path A/B timing, the multiprocess demo
 """
 
 from raytpu_torch.config import BENCH_CONFIGS, RenderConfig
 from raytpu_torch.grad import (exposure_image_loss, finite_difference_check,
                                fit_scene, image_loss, loss_and_grad,
-                               loss_and_grad_wavefront)
+                               loss_and_grad_sharded, loss_and_grad_wavefront)
 from raytpu_torch.image import max_colour_value, read_ppm, tone_map, write_ppm
 from raytpu_torch.kernels.wavefront import (render_image_wavefront,
                                             render_pixels_wavefront)
-from raytpu_torch.render import (DroppedRaysError, render_single, render_timed,
-                                 resolve_backend)
+from raytpu_torch.parallel import (gather_image, initialize_distributed,
+                                   make_mesh)
+from raytpu_torch.render import (DroppedRaysError, render_sharded, render_single,
+                                 render_timed, resolve_backend)
 from raytpu_torch.scene import (Lights, Medium, Scene, Spheres, build_scene,
                                 default_scene, make_material, random_scene,
                                 scene_from_leaves, scene_from_numpy,
@@ -39,6 +47,7 @@ from raytpu_torch.scene import (Lights, Medium, Scene, Spheres, build_scene,
 from raytpu_torch.scene_io import load_scene, save_scene
 from raytpu_torch.trace import camera_rays, render_image, render_pixels, trace_rays
 from raytpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from raytpu_torch.utils.debug import checked_render
 
 __version__ = "0.1.0"
 
@@ -50,11 +59,13 @@ __all__ = [
     "scene_leaves", "scene_from_leaves",
     "load_scene", "save_scene",
     "render_image", "render_pixels", "trace_rays", "camera_rays",
-    "render_single", "render_timed", "resolve_backend", "DroppedRaysError",
+    "render_single", "render_sharded", "render_timed", "resolve_backend",
+    "DroppedRaysError", "make_mesh", "initialize_distributed", "gather_image",
     "render_pixels_wavefront", "render_image_wavefront",
     "tone_map", "write_ppm", "read_ppm", "max_colour_value",
     "image_loss", "exposure_image_loss", "loss_and_grad",
-    "loss_and_grad_wavefront", "fit_scene",
+    "loss_and_grad_wavefront", "loss_and_grad_sharded", "fit_scene",
     "finite_difference_check", "save_checkpoint", "load_checkpoint",
+    "checked_render",
     "__version__",
 ]

@@ -9,12 +9,17 @@ Examples:
       --strict-drops -o config5.ppm           # BASELINE config 5
   python -m raytpu_torch.cli --compare a.ppm b.ppm
   python -m raytpu_torch.cli --list-devices
+  python -m torch.distributed.run --nproc-per-node 2 -m raytpu_torch.cli \
+      --sharded --interleave -o out.ppm    # pixels split over 2 ranks
 
-The scene lives on the first CUDA device, or on the CPU with --cpu;
-without --cpu and without a CUDA device the CLI exits 2.  --backend auto
-then picks the CUDA kernel (or the wavefront past the measured crossover)
-or the eager tracer.  A wavefront render that drops live rays warns, or
-under --strict-drops exits 3.
+The scene lives on the first CUDA device (under torchrun, the card its
+LOCAL_RANK names), or on the CPU with --cpu; without --cpu and without a
+CUDA device the CLI exits 2.  --backend auto then picks the CUDA kernel
+(or the wavefront past the measured crossover) or the eager tracer.
+--sharded renders over the process group torchrun describes ("nccl" on
+cards, "gloo" with --cpu), or over a world of one without torchrun; rank
+0 writes the PPM and the --time line.  A wavefront render that drops
+live rays warns, or under --strict-drops exits 3.
 """
 
 from __future__ import annotations
@@ -22,17 +27,19 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from raytpu_torch.config import RenderConfig
+from raytpu_torch.parallel.mesh import (describe_devices, initialize_distributed,
+                                        local_device, make_mesh)
 
-# Flags of raytpu.cli whose path the port does not have yet.
+# Flags of raytpu.cli whose path the port does not have.
 _NOT_PORTED = {
-    "sharded": "--sharded: the sharded driver is ROADMAP Queue 1 item 7",
-    "interleave": "--interleave: the sharded driver is ROADMAP Queue 1 item 7",
     "oracle": "--oracle: the strict numpy oracle stays in raytpu (ROADMAP "
               "Queue 1, 'Not to port'); run python -m raytpu.cli --oracle",
     "streams": "--streams: measured neutral on the TPU, not ported (ROADMAP "
@@ -89,9 +96,14 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="compare two PPM images and print diff stats as "
                         "JSON; all other options are ignored")
+    p.add_argument("--sharded", action="store_true",
+                   help="split the pixels over the ranks of the process "
+                        "group torchrun set up (a world of one without it)")
+    p.add_argument("--interleave", action="store_true",
+                   help="with --sharded: give each rank the strided pixel set "
+                        "{rank + j*ranks} instead of a contiguous block")
     # Accepted so that raytpu's command lines fail with a clear message.
-    for flag in ("--sharded", "--interleave", "--oracle"):
-        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--oracle", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--streams", type=int, default=None, help=argparse.SUPPRESS)
     return p
 
@@ -136,13 +148,6 @@ def make_scene(args, device):
                                                              opacity=opacity))
 
 
-def describe_devices() -> str:
-    lines = ["cpu"]
-    for i in range(torch.cuda.device_count()):
-        lines.append(f"cuda:{i} {torch.cuda.get_device_name(i)}")
-    return "\n".join(lines)
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -164,16 +169,31 @@ def main(argv=None) -> int:
         print("error: no CUDA device found; pass --cpu to render on the CPU",
               file=sys.stderr)
         return 2
+    device = torch.device("cpu") if args.cpu else local_device()
+    joined = args.sharded and "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if joined:
+        initialize_distributed("env://", backend="gloo" if args.cpu else "nccl")
+    try:
+        return _render(args, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _render(args, device) -> int:
     cfg = RenderConfig(width=args.width, height=args.height, zoom=args.zoom,
                        alias_factor=args.alias_factor, max_depth=args.max_depth,
                        chunk_pixels=args.chunk_pixels)
-    scene = make_scene(args, torch.device("cpu" if args.cpu else "cuda:0"))
-    if args.save_scene:
+    scene = make_scene(args, device)
+    mesh = make_mesh(device) if args.sharded else None
+    lead = mesh is None or mesh.rank == 0  # the one rank that writes files
+    if args.save_scene and lead:
         from raytpu_torch.scene_io import save_scene
         save_scene(scene, args.save_scene)
         print(f"wrote {args.save_scene}")
 
-    from raytpu_torch.render import DroppedRaysError, render_single, render_timed
+    from raytpu_torch.render import (DroppedRaysError, render_sharded,
+                                     render_single, render_timed)
     wf_opts = {k: v for k, v in (("chunk_rays", args.chunk_rays),
                                  ("capacity_factor", args.capacity_factor))
                if v is not None}
@@ -185,8 +205,14 @@ def main(argv=None) -> int:
                       "available", file=sys.stderr)
                 return 2
             img, stats = render_timed(scene, cfg, backend=args.backend,
-                                      wf_opts=wf_opts, on_drop=on_drop)
-            print(json.dumps({k: v for k, v in stats.items() if k != "times"}))
+                                      wf_opts=wf_opts, on_drop=on_drop,
+                                      mesh=mesh, interleave=args.interleave)
+            if lead:
+                print(json.dumps({k: v for k, v in stats.items() if k != "times"}))
+        elif mesh is not None:
+            img = render_sharded(scene, cfg, mesh, backend=args.backend,
+                                 wf_opts=wf_opts, on_drop=on_drop,
+                                 interleave=args.interleave)
         else:
             img = render_single(scene, cfg, backend=args.backend,
                                 wf_opts=wf_opts, on_drop=on_drop)
@@ -194,7 +220,7 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 3
 
-    if args.output:
+    if args.output and lead:
         from raytpu_torch.image import write_ppm
         write_ppm(img.cpu().numpy(), args.output)
         print(f"wrote {args.output}")

@@ -8,7 +8,9 @@ Config 3's training step (640x480, depth 4, 3x3 AA):
     python -m raytpu_torch.examples.fit_scene --width 640 --height 480 \\
         --depth 4 --alias-factor 3 --mode geometry --steps 3
 The same through the differentiable wavefront: add --backend wavefront.
-The sharded fit (--mesh) is not ported yet (ROADMAP Queue 1 item 7).
+Sharded over the pixels of 2 ranks (gloo on the CPU, nccl on cards):
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m raytpu_torch.examples.fit_scene --cpu --mesh 2 --steps 20
 
 The perturbation draws from numpy.random.default_rng(0), not jax.random:
 the port cannot reproduce jax.random's bits, so its perturbed scene differs
@@ -24,6 +26,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -43,7 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cpu", action="store_true",
                     help="fit on the CPU (default: the first CUDA device)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="shard the fit over N devices (not ported yet)")
+                    help="shard the fit's pixels over the N ranks of the "
+                         "process group (torchrun's; a world of one without "
+                         "it); an error when the group has not N ranks")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "torch", "cuda", "wavefront"],
                     help="gradient backend: cuda, the forward/backward kernel "
@@ -85,15 +90,30 @@ def main(argv=None) -> dict:
     """Run the fit; returns the config, the truth, the perturbed start, the
     target, the fitted scene, the start loss and every step's loss."""
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the sharded fit is not ported yet (ROADMAP Queue 1 item 7)")
     if not args.cpu and not torch.cuda.is_available():
         print("error: no CUDA device found; pass --cpu to fit on the CPU",
               file=sys.stderr)
         raise SystemExit(2)
-    device = torch.device("cpu" if args.cpu else "cuda:0")
+    from raytpu_torch.parallel.mesh import (initialize_distributed,
+                                            local_device, make_mesh)
 
+    device = torch.device("cpu") if args.cpu else local_device()
+    joined = bool(args.mesh) and "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if joined:
+        initialize_distributed("env://", backend="gloo" if args.cpu else "nccl")
+    try:
+        mesh = make_mesh(device) if args.mesh else None
+        if mesh is not None and mesh.size != args.mesh:
+            print(f"error: --mesh {args.mesh}, but the process group has "
+                  f"{mesh.size} ranks", file=sys.stderr)
+            raise SystemExit(2)
+        return _fit(args, device, mesh)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _fit(args, device, mesh) -> dict:
     from raytpu_torch.config import RenderConfig
     from raytpu_torch.grad import fit_scene, image_loss
     from raytpu_torch.render import render_single
@@ -119,8 +139,10 @@ def main(argv=None) -> dict:
     with torch.no_grad():
         start = float(image_loss(scene, cfg, target, backend=args.backend))
 
+    lead = mesh is None or mesh.rank == 0  # the one rank that prints and saves
+
     def cb(step, loss, s):
-        if step % 10 == 0:
+        if step % 10 == 0 and lead:
             print(f"step {step:4d}: loss {loss:.3e}")
             if args.checkpoint:
                 save_checkpoint(args.checkpoint, s)
@@ -130,12 +152,13 @@ def main(argv=None) -> dict:
     # scale-appropriate eps restores Adam's scale invariance.
     fitted, losses = fit_scene(
         scene, cfg, target, steps=args.steps, learning_rate=args.lr,
-        callback=cb, trainable=trainable, backend=args.backend,
+        mesh=mesh, callback=cb, trainable=trainable, backend=args.backend,
         optimizer=lambda p: torch.optim.Adam(p, lr=args.lr, eps=1e-16))
-    print(f"loss: {start:.3e} -> {losses[-1]:.3e} "
-          f"({start / max(losses[-1], 1e-30):.1f}x reduction)")
     err = (fitted.spheres.pos - truth.spheres.pos).abs().max()
-    print(f"sphere position error: max {float(err):.4f}")
+    if lead:
+        print(f"loss: {start:.3e} -> {losses[-1]:.3e} "
+              f"({start / max(losses[-1], 1e-30):.1f}x reduction)")
+        print(f"sphere position error: max {float(err):.4f}")
     return dict(cfg=cfg, truth=truth, scene=scene, target=target,
                 fitted=fitted, start_loss=start, losses=losses)
 

@@ -28,8 +28,12 @@ Backends, as resolve_train_backend resolves them:
 Non-differentiable events are handled as in raytpu: the closest-hit,
 container, shadow and significance selections are constants of the
 derivative, and masked square roots and divisions are guarded so that no
-gradient is NaN.  The sharded training path (a mesh, interleave) is not
-ported yet (ROADMAP Queue 1 item 7).
+gradient is NaN.
+
+loss_and_grad_sharded and fit_scene(mesh=) train over the ranks of a
+process group (raytpu_torch.parallel): the scene replicated, each rank the
+gradient of its pixel set's share of the loss, and one all-reduce of the
+gradient, the loss and the drop count together.
 """
 
 from __future__ import annotations
@@ -39,8 +43,10 @@ import torch
 
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels.trace_cuda import (SMEM_BYTES, _bwd_shared_bytes,
-                                             dense_takes, render_pixels_cuda_ad)
+                                             dense_takes, render_pixels_cuda_ad,
+                                             render_pixels_torch)
 from raytpu_torch.kernels.wavefront import render_pixels_wavefront
+from raytpu_torch.parallel.mesh import all_reduce_sum, make_mesh, pixel_set
 from raytpu_torch.render import (WF_AUTO_CHUNK_TRAIN, _report_drops,
                                  _warn_escalate, _wf_auto_trials,
                                  _wf_wins_train, resolve_backend)
@@ -74,27 +80,35 @@ def resolve_train_backend(backend: str, scene, cfg: RenderConfig,
 
 
 def _render_ad(scene, cfg: RenderConfig, gid, backend: str,
-               wf_opts: dict | None = None, info: dict | None = None):
-    """Differentiable render of the pixel ids `gid` (None: the whole frame).
-    The wavefront's drop counter goes to info["dropped"] (a 0-d tensor on
-    the device) for the caller to enforce; without `info` it is enforced
-    here, since no caller could see it."""
+               wf_opts: dict | None = None, info: dict | None = None,
+               pixels=None):
+    """Differentiable render of the pixel ids `gid` (None: the whole frame),
+    or of the pixel set `pixels` = (offset, count, stride), a rank's shard,
+    on any backend; "auto" is resolved for the frame either way, so that
+    every rank resolves alike.  The wavefront's drop counter goes to
+    info["dropped"] (a 0-d tensor on the device) for the caller to enforce;
+    without `info` it is enforced here, since no caller could see it."""
     backend = resolve_train_backend(backend, scene, cfg, gid)
     if backend in ("cuda", "wavefront"):
         if gid is not None:
             raise ValueError(f"backend {backend!r} renders the whole frame; "
                              f"pass backend='torch' to differentiate a pixel "
                              f"subset")
+        offset, count, stride = (0, None, 1) if pixels is None else pixels
         if backend == "cuda":
-            return render_pixels_cuda_ad(scene, cfg)
+            return render_pixels_cuda_ad(scene, cfg, offset, count, stride)
         opts = {"chunk_rays": WF_AUTO_CHUNK_TRAIN,
                 "capacity_factor": WF_TRAIN_CAPACITY, **(wf_opts or {})}
-        img, i = render_pixels_wavefront(scene, cfg, return_info=True, **opts)
+        img, i = render_pixels_wavefront(scene, cfg, return_info=True,
+                                         offset=offset, count=count,
+                                         shard_stride=stride, **opts)
         if info is None:
             _report_drops(i["dropped"], "raise")
         else:
             info.update(dropped=i["dropped"], wf_opts=opts)
         return img
+    if pixels is not None:
+        return render_pixels_torch(scene, cfg, *pixels)
     if gid is None:
         gid = torch.arange(cfg.num_pixels, dtype=torch.int64,
                            device=scene.device)
@@ -174,9 +188,52 @@ def loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,
     return (value, grads, info) if return_info else (value, grads)
 
 
-def loss_and_grad_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "the sharded training step is not ported yet (ROADMAP Queue 1 item 7)")
+def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
+                          backend: str = "auto", interleave: bool = False,
+                          wf_opts: dict | None = None, on_drop: str = "raise",
+                          return_info: bool = False):
+    """The MSE against a (P, 3) target and its scene gradient, with the
+    pixels split over the ranks of `mesh` (default: make_mesh on the
+    scene's device) and the scene replicated: (loss, gradient Scene), the
+    same on every rank, with `return_info` also {'dropped': int}.
+
+    P must divide by the number of ranks.  Each rank renders its pixel set
+    (parallel.pixel_set; `interleave` as in render_sharded) through
+    `backend`, resolved for the frame as resolve_train_backend resolves it,
+    and takes the gradient of its share of the frame's mean, sum(err^2) /
+    (3P); one all-reduce then sums the gradient, the loss and the
+    wavefront's drop count in one buffer.  A dropped live ray biases the
+    gradient, so the summed count is reported per `on_drop` ("raise" by
+    default) on every rank alike.  `wf_opts` (chunk_rays,
+    capacity_factor) tune the wavefront."""
+    mesh = make_mesh(scene.device) if mesh is None else mesh
+    p = cfg.num_pixels
+    if p % mesh.size:
+        raise ValueError(f"{p} pixels do not divide over {mesh.size} ranks")
+    backend = resolve_train_backend(backend, scene, cfg)
+    pixels = pixel_set(mesh, cfg, interleave)
+    offset, count, stride = pixels
+    target = target_flat[offset::stride][:count]
+    info = {}
+
+    def loss(s):
+        err = _render_ad(s, cfg, None, backend, wf_opts, info, pixels) - target
+        return torch.sum(err * err) / (3 * p)
+
+    value, grads = _value_and_grad(loss, scene)
+    leaves = scene_leaves(grads)
+    dropped = info.get("dropped", torch.zeros((), device=value.device))
+    # float64: the drop count stays exact past 2^24, and the sum of the
+    # ranks' shares rounds once into float32.
+    buf = torch.cat([t.reshape(-1).double() for t in leaves]
+                    + [value.reshape(1).double(), dropped.reshape(1).double()])
+    buf = all_reduce_sum(mesh, buf)
+    nd = _report_drops(int(buf[-1]), on_drop)
+    parts = torch.split(buf[:-2], [t.numel() for t in leaves])
+    grads = scene_from_leaves([g.reshape(t.shape).to(t.dtype)
+                               for g, t in zip(parts, leaves)])
+    loss_value = buf[-2].to(value.dtype)
+    return (loss_value, grads, dict(dropped=nd)) if return_info else (loss_value, grads)
 
 
 def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
@@ -199,11 +256,13 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
     stateless, so the retry is exact), and the fit stays at that capacity.
     Drops left at the top of the ladder, or at an explicit capacity, go
     through `on_drop` ("raise" by default: a crashed step beats a biased
-    gradient).  The dense paths drop nothing.  `mesh` and `interleave`
-    belong to the sharded path, not ported yet, and raise."""
-    if mesh is not None or interleave:
-        raise NotImplementedError(
-            "fitting over a mesh is not ported yet (ROADMAP Queue 1 item 7)")
+    gradient).  The dense paths drop nothing.
+
+    With `mesh`, every step is loss_and_grad_sharded's over it (`interleave`
+    as there): each rank holds the whole scene and applies the same summed
+    gradient, and the ladder climbs on the drops summed over the ranks, so
+    every rank takes the same steps.  The backend is resolved for the
+    frame, not the shard, so every rank takes the same backend."""
     backend = resolve_train_backend(backend, scene, cfg)
     params = [t.detach().clone().requires_grad_(True)
               for t in scene_leaves(scene)]
@@ -221,7 +280,11 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
     losses = []
     for step in range(steps):
         while True:
-            if backend == "wavefront":
+            if mesh is not None:
+                loss, grads, info = loss_and_grad_sharded(
+                    snapshot(), cfg, target_flat, mesh, backend, interleave,
+                    trials[rung], on_drop="ignore", return_info=True)
+            elif backend == "wavefront":
                 loss, grads, info = loss_and_grad_wavefront(
                     snapshot(), cfg, target_flat, on_drop="ignore",
                     return_info=True, **trials[rung])

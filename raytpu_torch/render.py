@@ -16,7 +16,9 @@ Backends:
                   the scene and the config), else "cuda"; "torch" on the
                   CPU, as raytpu resolves to jnp off-TPU.
 
-The sharded driver is not ported yet (ROADMAP Queue 1 item 7).
+render_sharded renders the frame over the ranks of a process group
+(raytpu_torch.parallel): the scene replicated, each rank its pixel set,
+the frame gathered on every rank.
 """
 
 from __future__ import annotations
@@ -26,8 +28,11 @@ import warnings
 import torch
 
 from raytpu_torch.config import RenderConfig
-from raytpu_torch.kernels.trace_cuda import dense_takes
-from raytpu_torch.trace import render_image
+from raytpu_torch.kernels.trace_cuda import (dense_takes, render_pixels_cuda,
+                                             render_pixels_torch)
+from raytpu_torch.kernels.wavefront import render_pixels_wavefront
+from raytpu_torch.parallel.mesh import (Mesh, all_gather_rows, all_reduce_sum,
+                                        make_mesh, pixel_set)
 from raytpu_torch.utils.profiling import Timer
 
 # The "auto" crossover on an NVIDIA H100 80GB HBM3 at 700 W: the wavefront
@@ -161,20 +166,40 @@ def render_single(scene, cfg: RenderConfig, backend: str = "auto",
     wavefront and are ignored by the other backends.  Without a
     capacity_factor the wavefront runs the auto ladder, re-rendering at
     the next capacity on any drop; drops left after it are reported per
-    `on_drop` ("warn", "raise" or "ignore")."""
+    `on_drop` ("warn", "raise" or "ignore").  render_sharded over a world
+    of one, whatever process group is initialised."""
+    return render_sharded(scene, cfg, Mesh(0, 1, scene.device), backend,
+                          wf_opts, return_info, on_drop)
+
+
+def render_sharded(scene, cfg: RenderConfig, mesh=None, backend: str = "auto",
+                   wf_opts: dict | None = None, return_info: bool = False,
+                   on_drop: str = "warn", interleave: bool = False):
+    """Render the frame with its pixels split over the ranks of `mesh`
+    (default: make_mesh on the scene's device) -> (H, W, 3) on every rank,
+    on the scene's device; with `return_info`, (image, info) as
+    render_single's, the drops summed over the ranks.
+
+    Each rank renders its pixel set (parallel.pixel_set): a block, or with
+    `interleave` the strided set {rank + j*size}, which spreads a hot strip
+    over the ranks.  Any P works: the last set's tail repeats pixel P-1 and
+    is cut off.  Pixels are independent, so the frame is the one-device
+    frame.  The wavefront's ladder climbs on the drops summed over the
+    ranks, read once a rung, so that every rank takes the same rung, and
+    drops left are reported per `on_drop` on every rank."""
+    mesh = make_mesh(scene.device) if mesh is None else mesh
     backend = resolve_backend(backend, scene.device, scene, cfg)
+    offset, count, stride = pixel_set(mesh, cfg, interleave)
     info = dict(dropped=0)
     if backend == "cuda":
-        from raytpu_torch.kernels import render_image_cuda
-
-        img = render_image_cuda(scene, cfg)
+        rows = render_pixels_cuda(scene, cfg, offset, count, stride)
     elif backend == "wavefront":
-        from raytpu_torch.kernels import render_image_wavefront
-
         trials = _wf_auto_trials(wf_opts)
         for i, o in enumerate(trials):
-            img, info = render_image_wavefront(scene, cfg, return_info=True, **o)
-            n = int(info["dropped"])  # the frame's one read of the counter
+            rows, mine = render_pixels_wavefront(
+                scene, cfg, return_info=True, offset=offset, count=count,
+                shard_stride=stride, **o)
+            n = int(all_reduce_sum(mesh, mine["dropped"]))  # one read a rung
             if n == 0 or i + 1 == len(trials):
                 break
             _warn_escalate(n, o, trials[i + 1])
@@ -182,33 +207,38 @@ def render_single(scene, cfg: RenderConfig, backend: str = "auto",
         # frames of the scene can pass them back and skip the ladder.
         info = dict(dropped=_report_drops(n, on_drop), wf_opts=o)
     else:
-        img = render_image(scene, cfg)
+        rows = render_pixels_torch(scene, cfg, offset, count, stride)
+    out = all_gather_rows(mesh, rows)
+    if stride > 1:
+        # Row s*count + j holds pixel s + j*size: the transpose puts pixel
+        # q at row q (the repeated tail lands past P).
+        out = out.reshape(mesh.size, count, 3).transpose(0, 1).reshape(-1, 3)
+    img = out[:cfg.num_pixels].reshape(cfg.height, cfg.width, 3)
     return (img, info) if return_info else img
-
-
-def render_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "the sharded driver is not ported yet (ROADMAP Queue 1 item 7)")
 
 
 def render_timed(scene, cfg: RenderConfig, warmup: int = 1, iters: int = 3,
                  backend: str = "auto", wf_opts: dict | None = None,
-                 on_drop: str = "warn"):
+                 on_drop: str = "warn", mesh=None, interleave: bool = False):
     """Render a scene on a CUDA device and time it with CUDA events on the
     current stream (warm-up excluded), returning (image, stats).  Mrays/s
     counts camera rays (pixels * alias^2); `traced_rays` counts every slot
     of the 2^depth bounce tree; `dropped` is the wavefront's count of lost
     live rays in the last frame (0 on the other backends).  The wavefront's
-    warm-up settles its ladder, and the timed frames reuse its options."""
+    warm-up settles its ladder, and the timed frames reuse its options.
+    With `mesh`, the frame is render_sharded's over it (`interleave` as
+    there), its gather included; `ranks` counts them (1 without)."""
     timer = Timer(scene.device)
     backend = resolve_backend(backend, scene.device, scene, cfg)
+    mesh = Mesh(0, 1, scene.device) if mesh is None else mesh
     for _ in range(max(warmup, 0)):
-        _, info = render_single(scene, cfg, backend, wf_opts, True, on_drop)
+        _, info = render_sharded(scene, cfg, mesh, backend, wf_opts, True,
+                                 on_drop, interleave)
         wf_opts = info.get("wf_opts", wf_opts)
     for _ in range(max(iters, 1)):
         with timer.section("render"):
-            img, info = render_single(scene, cfg, backend, wf_opts, True,
-                                      on_drop)
+            img, info = render_sharded(scene, cfg, mesh, backend, wf_opts,
+                                       True, on_drop, interleave)
     times = timer.summary()["render"]
     dt = min(times)
     primary = cfg.rays_per_frame
@@ -222,6 +252,8 @@ def render_timed(scene, cfg: RenderConfig, warmup: int = 1, iters: int = 3,
         backend=backend,
         dropped=info["dropped"],
         device=torch.cuda.get_device_name(scene.device),
+        ranks=mesh.size,
+        interleave=interleave,
         times=times,
     )
     return img, stats

@@ -1,6 +1,7 @@
-"""Utilities: CUDA-event timing, fit checkpoints."""
+"""Utilities: CUDA-event timing, fit checkpoints, the checked render."""
 
 from raytpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from raytpu_torch.utils.debug import checked_render
 from raytpu_torch.utils.profiling import Timer
 
-__all__ = ["Timer", "load_checkpoint", "save_checkpoint"]
+__all__ = ["Timer", "checked_render", "load_checkpoint", "save_checkpoint"]

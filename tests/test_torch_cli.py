@@ -70,9 +70,10 @@ def test_scene_file_round_trip_and_flags(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--sharded"], ["--interleave"], ["--oracle"], ["--sharded", "--strict-drops"],
-    ["--interleave", "--chunk-rays", "1024"], ["--oracle", "--capacity-factor", "2.0"],
-    ["--streams", "2"],
+    ["--oracle", "--sharded"], ["--streams", "2", "--interleave"], ["--oracle"],
+    ["--oracle", "--sharded", "--strict-drops"],
+    ["--streams", "2", "--interleave", "--chunk-rays", "1024"],
+    ["--oracle", "--capacity-factor", "2.0"], ["--streams", "2"],
 ])
 def test_unported_flags_name_the_roadmap(flags, capsys):
     assert tcli.main(flags) == 2
@@ -96,7 +97,10 @@ def test_time_and_cuda_backend_need_a_card(capsys):
 def test_port_never_imports_jax():
     code = ("import sys, raytpu_torch, raytpu_torch.cli, raytpu_torch.kernels, "
             "raytpu_torch.render, raytpu_torch.grad, raytpu_torch.utils, "
-            "raytpu_torch.examples.fit_scene; "
+            "raytpu_torch.utils.debug, raytpu_torch.parallel, "
+            "raytpu_torch.examples.fit_scene, raytpu_torch.examples.animate, "
+            "raytpu_torch.examples.fit_golden_scene, "
+            "raytpu_torch.tools.multiprocess_demo; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'raytpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -33,6 +33,7 @@ from raytpu_torch.kernels import trace_cuda
 from raytpu_torch.kernels.trace_cuda import (grad_pixels_cuda, grad_pixels_torch,
                                              render_pixels_cuda_ad,
                                              render_pixels_torch)
+from raytpu_torch.parallel import Mesh, make_mesh
 from raytpu_torch.scene import LEAF_NAMES, scene_leaves
 from raytpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
@@ -240,21 +241,33 @@ def test_render_pixels_fn_on_the_cpu_is_plain_autograd():
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
 
 
-def test_unported_training_paths_name_the_roadmap():
+def test_unported_training_paths_name_the_roadmap(capsys):
+    """The sharded training paths over a world of one (no process group)
+    are the one-device paths; a mesh whose size the frame does not divide,
+    the kernel pair on a CPU scene and a fit example whose --mesh is not
+    the group's size are refused."""
     _, ts = scenes("default")
     cfg = tconfig.RenderConfig(width=8, height=4, max_depth=0, alias_factor=1)
     target = torch.zeros(cfg.num_pixels, 3)
-    for kw in (dict(mesh=object()), dict(interleave=True),
-               dict(mesh=object(), backend="wavefront"),
+    one = make_mesh("cpu")
+    want_loss, want = tgrad.loss_and_grad(ts, cfg, target)
+    for kw in (dict(), dict(interleave=True), dict(backend="wavefront"),
                dict(interleave=True, wf_opts={})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tgrad.fit_scene(ts, cfg, target, steps=1, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgrad.loss_and_grad_sharded(ts, cfg, target)
+        loss, grads = tgrad.loss_and_grad_sharded(ts, cfg, target, one, **kw)
+        np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6)
+        for a, w in zip(scene_leaves(grads), scene_leaves(want)):
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-6 * float(
+                max(w.abs().max(), 1e-30)))
+        fitted, losses = tgrad.fit_scene(ts, cfg, target, steps=1, mesh=one, **kw)
+        assert len(losses) == 1 and fitted.device.type == "cpu"
+    with pytest.raises(ValueError, match="divide"):
+        tgrad.loss_and_grad_sharded(ts, cfg, target, Mesh(0, 3, torch.device("cpu")))
     with pytest.raises(ValueError):
         tgrad.loss_and_grad(ts, cfg, target, backend="cuda")  # CPU scene
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(SystemExit) as exit_:
         fit_example.main(["--cpu", "--mesh", "2"])
+    assert exit_.value.code == 2
+    assert "--mesh 2" in capsys.readouterr().err
 
 
 def test_fit_example_runs_on_the_cpu_only_when_asked(capsys):
