@@ -124,8 +124,7 @@ result lines):
      memory per rank; and `torch.distributed.run --nproc-per-node 1 -m
      raytpu_torch.cli --sharded --interleave`, the golden PPM byte for
      byte against phase 6's.  Each path's kernels must have launched.
-The last three lines are nvidia-smi's, the kernels JSON (each kernel's
-"sharded_launches": its launches on phase 17's paths) and
+The last three lines are nvidia-smi's, the kernels JSON and
 {"ok": true, "device": ...}.
 """
 
@@ -1121,14 +1120,14 @@ def training_phases(dev):
     trainable = scene_from_leaves([n in ("spheres.matte", "lights.col")
                                    for n in LEAF_NAMES])
     calls = []
-    real = grad.loss_and_grad_wavefront
+    real = grad.loss_and_grad_sharded
 
-    def spy(scene, cfg, target_flat, **kw):
+    def spy(scene, cfg, target_flat, **kw):  # fit_scene's every step
         out = real(scene, cfg, target_flat, **kw)
-        calls.append((scene, out, kw))
+        calls.append((scene, out, kw["wf_opts"]))
         return out
 
-    grad.loss_and_grad_wavefront = spy
+    grad.loss_and_grad_sharded = spy
     try:
         for k in kernels:
             k.launches = 0
@@ -1140,7 +1139,7 @@ def training_phases(dev):
         fit_s = time.perf_counter() - t0
         l3, l4, l5, l6 = (k.launches for k in kernels)
     finally:
-        grad.loss_and_grad_wavefront = real
+        grad.loss_and_grad_sharded = real
     chunks = [wavefront_sizes(c5, kw["chunk_rays"], kw["capacity_factor"])[3]
               for _, _, kw in calls]
     levels = c5.max_depth + 1
@@ -1908,16 +1907,16 @@ def main() -> int:
     # Phase 7: the training path, config 3, through the fit example.
     c3 = BENCH_CONFIGS["config3"]
     first = []
-    loss_and_grad = grad.loss_and_grad
+    loss_and_grad_sharded = grad.loss_and_grad_sharded
 
-    def spy_grad(scene, *args, **kwargs):
-        out = loss_and_grad(scene, *args, **kwargs)
+    def spy_grad(scene, *args, **kwargs):  # fit_scene's every step
+        out = loss_and_grad_sharded(scene, *args, **kwargs)
         if not first:  # the optimizer then updates its leaves in place
             first.append((scene_from_leaves([t.clone() for t in scene_leaves(scene)]),
-                          out))
+                          out[:2]))
         return out
 
-    grad.loss_and_grad = spy_grad
+    grad.loss_and_grad_sharded = spy_grad
     try:
         TRACE_FWD.launches = TRACE_BWD.launches = 0
         fit = fit_example.main([
@@ -1927,7 +1926,7 @@ def main() -> int:
         torch.cuda.synchronize()
         fwd_launches, bwd_launches = TRACE_FWD.launches, TRACE_BWD.launches
     finally:
-        grad.loss_and_grad = loss_and_grad
+        grad.loss_and_grad_sharded = loss_and_grad_sharded
     check(fwd_launches >= 1, "the training path did not launch trace_fwd")
     check(bwd_launches >= 1, "the training path did not launch trace_bwd")
     losses = fit["losses"]
@@ -2104,8 +2103,8 @@ def main() -> int:
         {"name": "wf_uncompact", "route": "cuda",
          "source": os.path.relpath(str(WF_UNCOMPACT.source), ROOT),
          "replaces": "raytpu/kernels/wavefront.py:591", **k6}]
-    for e in entries:  # launches on phase 17's sharded paths
-        e["sharded_launches"] = sharded[e["name"]]
+    print(f"phase 17: each kernel's launches on the sharded paths "
+          f"{json.dumps(sharded)}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -46,7 +46,7 @@ from raytpu_torch.kernels.trace_cuda import (SMEM_BYTES, _bwd_shared_bytes,
                                              dense_takes, render_pixels_cuda_ad,
                                              render_pixels_torch)
 from raytpu_torch.kernels.wavefront import render_pixels_wavefront
-from raytpu_torch.parallel.mesh import all_reduce_sum, make_mesh, pixel_set
+from raytpu_torch.parallel.mesh import Mesh, all_reduce_sum, make_mesh, pixel_set
 from raytpu_torch.render import (WF_AUTO_CHUNK_TRAIN, _report_drops,
                                  _warn_escalate, _wf_auto_trials,
                                  _wf_wins_train, resolve_backend)
@@ -154,9 +154,10 @@ def loss_and_grad(scene, cfg: RenderConfig, target_flat, backend: str = "auto"):
     scene leaf: (loss, gradient Scene).  On a CUDA scene "auto" runs the
     forward and backward kernels, or the wavefront where
     resolve_train_backend says so (a drop then raises); on the CPU,
-    autograd of the eager tracer."""
-    return _value_and_grad(
-        lambda s: image_loss(s, cfg, target_flat, backend=backend), scene)
+    autograd of the eager tracer.  loss_and_grad_sharded over a world of
+    one, whatever process group is initialised."""
+    return loss_and_grad_sharded(scene, cfg, target_flat,
+                                 Mesh(0, 1, scene.device), backend)
 
 
 def loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,
@@ -175,17 +176,12 @@ def loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,
     moves as a fit moves the geometry, so the drop count is read on every
     call and reported per `on_drop`: "raise" (default), "warn" or
     "ignore".  Returns (loss, gradient Scene), with `return_info` also
-    {'dropped': int, 'wf_opts': the options used}."""
-    info = {}
-    opts = dict(chunk_rays=chunk_rays, capacity_factor=capacity_factor)
-
-    def loss(s):
-        err = _render_ad(s, cfg, None, "wavefront", opts, info) - target_flat
-        return torch.mean(err * err)
-
-    value, grads = _value_and_grad(loss, scene)
-    info["dropped"] = _report_drops(info["dropped"], on_drop)
-    return (value, grads, info) if return_info else (value, grads)
+    {'dropped': int, 'wf_opts': the options used}.  loss_and_grad_sharded
+    over a world of one."""
+    return loss_and_grad_sharded(
+        scene, cfg, target_flat, Mesh(0, 1, scene.device), "wavefront",
+        wf_opts=dict(chunk_rays=chunk_rays, capacity_factor=capacity_factor),
+        on_drop=on_drop, return_info=return_info)
 
 
 def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
@@ -195,17 +191,18 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
     """The MSE against a (P, 3) target and its scene gradient, with the
     pixels split over the ranks of `mesh` (default: make_mesh on the
     scene's device) and the scene replicated: (loss, gradient Scene), the
-    same on every rank, with `return_info` also {'dropped': int}.
+    same on every rank, with `return_info` also {'dropped': int} and, for
+    the wavefront, {'wf_opts': the options used}.
 
     P must divide by the number of ranks.  Each rank renders its pixel set
     (parallel.pixel_set; `interleave` as in render_sharded) through
     `backend`, resolved for the frame as resolve_train_backend resolves it,
     and takes the gradient of its share of the frame's mean, sum(err^2) /
     (3P); one all-reduce then sums the gradient, the loss and the
-    wavefront's drop count in one buffer.  A dropped live ray biases the
-    gradient, so the summed count is reported per `on_drop` ("raise" by
-    default) on every rank alike.  `wf_opts` (chunk_rays,
-    capacity_factor) tune the wavefront."""
+    wavefront's drop count in one buffer (none in a world of one).  A
+    dropped live ray biases the gradient, so the summed count is reported
+    per `on_drop` ("raise" by default) on every rank alike.  `wf_opts`
+    (chunk_rays, capacity_factor) tune the wavefront."""
     mesh = make_mesh(scene.device) if mesh is None else mesh
     p = cfg.num_pixels
     if p % mesh.size:
@@ -221,19 +218,22 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
         return torch.sum(err * err) / (3 * p)
 
     value, grads = _value_and_grad(loss, scene)
-    leaves = scene_leaves(grads)
-    dropped = info.get("dropped", torch.zeros((), device=value.device))
-    # float64: the drop count stays exact past 2^24, and the sum of the
-    # ranks' shares rounds once into float32.
-    buf = torch.cat([t.reshape(-1).double() for t in leaves]
-                    + [value.reshape(1).double(), dropped.reshape(1).double()])
-    buf = all_reduce_sum(mesh, buf)
-    nd = _report_drops(int(buf[-1]), on_drop)
-    parts = torch.split(buf[:-2], [t.numel() for t in leaves])
-    grads = scene_from_leaves([g.reshape(t.shape).to(t.dtype)
-                               for g, t in zip(parts, leaves)])
-    loss_value = buf[-2].to(value.dtype)
-    return (loss_value, grads, dict(dropped=nd)) if return_info else (loss_value, grads)
+    # The gradient leaves, the loss and (the wavefront's) the drop count.
+    parts = [*scene_leaves(grads), value] + (
+        [info["dropped"]] if "dropped" in info else [])
+    if mesh.group is not None:
+        # float64: the drop count stays exact past 2^24, and the sum of the
+        # ranks' shares rounds once into float32.
+        buf = all_reduce_sum(mesh, torch.cat([t.reshape(-1).double()
+                                              for t in parts]))
+        parts = [b.reshape(t.shape).to(t.dtype) for b, t in
+                 zip(torch.split(buf, [t.numel() for t in parts]), parts)]
+    # The dense backends drop nothing, and their step reads nothing back.
+    info["dropped"] = (_report_drops(int(parts.pop()), on_drop)
+                       if "dropped" in info else 0)
+    loss_value = parts.pop()
+    grads = scene_from_leaves(parts)
+    return (loss_value, grads, info) if return_info else (loss_value, grads)
 
 
 def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
@@ -258,12 +258,14 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
     through `on_drop` ("raise" by default: a crashed step beats a biased
     gradient).  The dense paths drop nothing.
 
-    With `mesh`, every step is loss_and_grad_sharded's over it (`interleave`
-    as there): each rank holds the whole scene and applies the same summed
-    gradient, and the ladder climbs on the drops summed over the ranks, so
-    every rank takes the same steps.  The backend is resolved for the
-    frame, not the shard, so every rank takes the same backend."""
+    Every step is loss_and_grad_sharded's over `mesh` (default: a world of
+    one on the scene's device; `interleave` as there): each rank holds the
+    whole scene and applies the same summed gradient, and the ladder
+    climbs on the drops summed over the ranks, so every rank takes the
+    same steps.  The backend is resolved for the frame, not the shard, so
+    every rank takes the same backend."""
     backend = resolve_train_backend(backend, scene, cfg)
+    mesh = Mesh(0, 1, scene.device) if mesh is None else mesh
     params = [t.detach().clone().requires_grad_(True)
               for t in scene_leaves(scene)]
     if optimizer is None:
@@ -280,17 +282,10 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
     losses = []
     for step in range(steps):
         while True:
-            if mesh is not None:
-                loss, grads, info = loss_and_grad_sharded(
-                    snapshot(), cfg, target_flat, mesh, backend, interleave,
-                    trials[rung], on_drop="ignore", return_info=True)
-            elif backend == "wavefront":
-                loss, grads, info = loss_and_grad_wavefront(
-                    snapshot(), cfg, target_flat, on_drop="ignore",
-                    return_info=True, **trials[rung])
-            else:
-                loss, grads = loss_and_grad(snapshot(), cfg, target_flat, backend)
-                info = dict(dropped=0)
+            loss, grads, info = loss_and_grad_sharded(
+                snapshot(), cfg, target_flat, mesh=mesh, backend=backend,
+                interleave=interleave, wf_opts=trials[rung], on_drop="ignore",
+                return_info=True)
             if info["dropped"] == 0:
                 break
             if rung + 1 == len(trials):

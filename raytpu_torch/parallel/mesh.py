@@ -58,14 +58,14 @@ def local_device() -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
-def make_mesh(device=None, group=None) -> Mesh:
-    """The mesh over `group` (default: the world) of the initialised process
-    group, or a world of one when none is initialised.  `device` is where
-    this rank renders (default: local_device())."""
+def make_mesh(device=None) -> Mesh:
+    """The mesh over the world of the initialised process group, or a world
+    of one when none is initialised.  `device` is where this rank renders
+    (default: local_device())."""
     device = local_device() if device is None else torch.device(device)
     if not dist.is_initialized():
         return Mesh(0, 1, device)
-    group = dist.group.WORLD if group is None else group
+    group = dist.group.WORLD
     return Mesh(dist.get_rank(group), dist.get_world_size(group), device, group,
                 dist.get_backend(group))
 

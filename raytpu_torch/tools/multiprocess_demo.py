@@ -4,14 +4,14 @@ joins one torch.distributed group, renders frames sharded, takes sharded
 training steps and short sharded fits, and writes what it got, beside
 the one-device results (rank 0), to an .npz of its own.
 
-    python -m raytpu_torch.tools.multiprocess_demo               # 2 ranks, CPU, gloo
-    python -m raytpu_torch.tools.multiprocess_demo --suite card  # 2 ranks sharing a card
+    python -m raytpu_torch.tools.multiprocess_demo        # 2 ranks sharing a card
+    python -m raytpu_torch.tools.multiprocess_demo --cpu  # 2 ranks, CPU, gloo
 
 A suite is a list of cases (SUITES).  Without --worker it starts --procs
 workers (`--worker RANK`), each with a time limit, loads every rank's
 results and prints each case's difference from the one-device result and
 whether it is within its tolerance; it exits 1 if a worker failed or a
-case is not.  Ranks sharing one card use "gloo": "nccl" refuses two
+case is not, and 2 without a card unless --cpu is given.  Ranks sharing one card use "gloo": "nccl" refuses two
 ranks on one GPU; `--device cuda --dist-backend nccl` gives a card a rank.
 """
 
@@ -349,25 +349,35 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--procs", type=int, default=2)
-    ap.add_argument("--suite", choices=sorted(SUITES), default="cpu")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run the cpu suite on the CPU (default: the card "
+                         "suite on cuda:0)")
+    ap.add_argument("--suite", choices=sorted(SUITES), default=None,
+                    help="default: cpu with --cpu, else card")
     ap.add_argument("--device", default=None,
                     help="the device every rank renders on, or 'cuda' for a "
-                         "card a rank (default: cpu for the cpu suite, cuda:0 "
-                         "for card)")
+                         "card a rank (default: cpu with --cpu, else cuda:0)")
     ap.add_argument("--dist-backend", default="gloo", choices=["gloo", "nccl"])
     ap.add_argument("--timeout", type=float, default=900.0)
     ap.add_argument("--out", default=None, help="directory for the .npz files")
     ap.add_argument("--worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    device = args.device or ("cpu" if args.suite == "cpu" else "cuda:0")
+    suite = args.suite or ("cpu" if args.cpu else "card")
+    device = args.device or ("cpu" if args.cpu else "cuda:0")
     if args.worker is not None:
-        return worker(args.worker, args.procs, args.init, args.suite, device,
+        return worker(args.worker, args.procs, args.init, suite, device,
                       args.dist_backend, args.out)
-    results = spawn(args.suite, args.procs, device, args.dist_backend, args.out,
+    import torch
+
+    if device != "cpu" and not torch.cuda.is_available():
+        print("error: no CUDA device found; pass --cpu to run on the CPU",
+              file=sys.stderr)
+        return 2
+    results = spawn(suite, args.procs, device, args.dist_backend, args.out,
                     args.timeout)
     ok = True
-    for case in SUITES[args.suite]:
+    for case in SUITES[suite]:
         s = case_summary(results, case)
         ok &= s["ok"]
         print(json.dumps(s))

@@ -161,9 +161,12 @@ def _trace_level(scene, origin, direction, intensity, med_matte, med_ior,
     return emission, children
 
 
-def trace_rays(scene, origin, direction, intensity, max_depth: int):
+def trace_rays(scene, origin, direction, intensity, max_depth: int,
+               observe=None):
     """Trace a flat batch of rays to `max_depth` bounce levels; returns the
-    per-ray colour (B, 3).  Rays start in the scene's background medium."""
+    per-ray colour (B, 3).  Rays start in the scene's background medium.
+    `observe`, where given, is called after each level with (level,
+    emission, children), children None at the last level."""
     b = direction.shape[0]
     origin = torch.broadcast_to(origin, direction.shape).to(torch.float32)
     med_matte = torch.broadcast_to(scene.bg.matte, (b, 3))
@@ -174,37 +177,42 @@ def trace_rays(scene, origin, direction, intensity, max_depth: int):
     state = (origin, direction, intensity, med_matte, med_ior, med_opacity)
     for level in range(max_depth + 1):
         emission, children = _trace_level(scene, *state, spawn=level < max_depth)
+        if observe is not None:
+            observe(level, emission, children)
         # Level d holds 2^d contiguous copies of the B-ray batch.
         total = total + torch.sum(emission.reshape(-1, b, 3), dim=0)
         state = children
     return total
 
 
-def _render_gid_chunk(scene, gid, cfg: RenderConfig):
+def _render_gid_chunk(scene, gid, cfg: RenderConfig, observe=None):
     """Render one chunk of pixel ids: every supersample pattern through the
     full bounce tree, averaged with the 1/aliasFactor^2 weight
-    (raytrace_kernel.cl:945-968)."""
+    (raytrace_kernel.cl:945-968).  `observe` as in trace_rays."""
     acc = torch.zeros((gid.shape[0], 3), dtype=torch.float32, device=gid.device)
     origin = torch.zeros((1, 3), dtype=torch.float32, device=gid.device)
     weight = camera_constants(cfg).weight
     for i in range(cfg.alias_factor):
         for j in range(cfg.alias_factor):
             d = camera_rays(cfg, i, j, gid)
-            colour = trace_rays(scene, origin, d, torch.ones_like(d), cfg.max_depth)
+            colour = trace_rays(scene, origin, d, torch.ones_like(d),
+                                cfg.max_depth, observe)
             acc = acc + weight * colour
     return acc
 
 
-def render_pixels(scene, cfg: RenderConfig, gid):
+def render_pixels(scene, cfg: RenderConfig, gid, observe=None):
     """Render a flat block of pixel ids -> (B, 3) linear colour, in chunks
-    of cfg.chunk_pixels so the 2^depth ray tree's memory stays bounded."""
+    of cfg.chunk_pixels so the 2^depth ray tree's memory stays bounded.
+    `observe` as in trace_rays, for every chunk and supersample."""
     if gid.shape[0] == 0:
         return torch.zeros((0, 3), dtype=torch.float32, device=gid.device)
-    return torch.cat([_render_gid_chunk(scene, g, cfg)
+    return torch.cat([_render_gid_chunk(scene, g, cfg, observe)
                       for g in torch.split(gid, cfg.chunk_pixels)])
 
 
-def render_image(scene, cfg: RenderConfig):
-    """Render the full frame on the scene's device: (H, W, 3) float32."""
+def render_image(scene, cfg: RenderConfig, observe=None):
+    """Render the full frame on the scene's device: (H, W, 3) float32.
+    `observe` as in render_pixels."""
     gid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=scene.device)
-    return render_pixels(scene, cfg, gid).reshape(cfg.height, cfg.width, 3)
+    return render_pixels(scene, cfg, gid, observe).reshape(cfg.height, cfg.width, 3)

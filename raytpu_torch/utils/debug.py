@@ -2,12 +2,12 @@
 of raytpu.utils.debug).
 
 raytpu runs its jnp tracer under checkify's float checks.  The port runs
-the eager tracer (raytpu_torch.trace) level by level and checks every
-tensor a level produces; a NaN or Inf is reported by the level and the
-field it first appears in, instead of turning up in pixels later.  The
-other half of raytpu's module, the Pallas interpreter as a kernel
-sanitizer, has its counterparts in the kernels' plain versions and their
-g++ host builds (tests/test_torch_*_host.py).
+the eager tracer's render_image (raytpu_torch.trace) with an observer
+that checks every tensor a level produces; a NaN or Inf is reported by
+the level and the field it first appears in, instead of turning up in
+pixels later.  The other half of raytpu's module, the Pallas interpreter
+as a kernel sanitizer, has its counterparts in the kernels' plain
+versions and their g++ host builds (tests/test_torch_*_host.py).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.scene import LEAF_NAMES, scene_leaves
-from raytpu_torch.trace import _trace_level, camera_constants, camera_rays
+from raytpu_torch.trace import render_image
 
 # The fields of a level's children, in _trace_level's order.
 CHILD_FIELDS = ("origin", "direction", "intensity", "matte", "ior", "opacity")
@@ -31,9 +31,9 @@ class NonFiniteError(FloatingPointError):
 @dataclasses.dataclass(frozen=True)
 class FloatError:
     """The first non-finite value of a checked render: the bounce `level`
-    (-1 for the camera rays) and the `field` it appeared in; or level None
-    and a scene leaf's name as `field` for a non-finite leaf that no
-    level's output shows; or both None for a clean render."""
+    and the `field` it appeared in; or level None and a scene leaf's name
+    as `field` for a non-finite leaf that no level's output shows; or both
+    None for a clean render."""
     level: int | None = None
     field: str | None = None
 
@@ -43,8 +43,7 @@ class FloatError:
             return None
         if self.level is None:
             return f"non-finite value in scene leaf {self.field}"
-        where = "camera rays" if self.level < 0 else f"bounce level {self.level}"
-        return f"non-finite value in {self.field} at {where}"
+        return f"non-finite value in {self.field} at bounce level {self.level}"
 
     def throw(self):
         """Raise NonFiniteError if the render produced a NaN or Inf."""
@@ -53,52 +52,30 @@ class FloatError:
             raise NonFiniteError(message)
 
 
-def _first_bad(level, named):
+def _first_bad(level, named) -> list:
+    """[the FloatError of the first non-finite tensor of `named`], or []."""
     for field, t in named:
         if not bool(torch.isfinite(t).all()):
-            return FloatError(level, field)
-    return None
+            return [FloatError(level, field)]
+    return []
 
 
 def checked_render(scene, cfg: RenderConfig):
     """Render the full frame with the eager tracer, checking every level's
     emissions and children for NaN and Inf -> (error, image), as
     raytpu.utils.debug.checked_render.  `error.throw()` raises on the first
-    non-finite value (camera rays, then level by level: the emission, then
-    the children's fields), or else on a non-finite scene leaf whose value
-    reached no level's output (a NaN radius makes its sphere vanish); a
-    clean render returns an error whose get() is None.  The image is
-    render_image's."""
-    device = scene.device
-    gid_all = torch.arange(cfg.num_pixels, dtype=torch.int64, device=device)
-    weight = camera_constants(cfg).weight
-    bg = scene.bg
-    error = None
-    chunks = []
-    for gid in torch.split(gid_all, cfg.chunk_pixels):
-        b = gid.shape[0]
-        acc = torch.zeros((b, 3), dtype=torch.float32, device=device)
-        for i in range(cfg.alias_factor):
-            for j in range(cfg.alias_factor):
-                d = camera_rays(cfg, i, j, gid)
-                error = error or _first_bad(-1, [("direction", d)])
-                state = (torch.zeros_like(d), d, torch.ones_like(d),
-                         torch.broadcast_to(bg.matte, (b, 3)),
-                         torch.broadcast_to(bg.ior, (b,)),
-                         torch.broadcast_to(bg.opacity, (b,)))
-                colour = torch.zeros((b, 3), dtype=torch.float32, device=device)
-                for level in range(cfg.max_depth + 1):
-                    spawn = level < cfg.max_depth
-                    emission, children = _trace_level(scene, *state, spawn=spawn)
-                    named = [("emission", emission)]
-                    if spawn:
-                        named += [(f"children.{f}", t)
-                                  for f, t in zip(CHILD_FIELDS, children)]
-                    error = error or _first_bad(level, named)
-                    colour = colour + torch.sum(emission.reshape(-1, b, 3), dim=0)
-                    state = children
-                acc = acc + weight * colour
-        chunks.append(acc)
-    img = torch.cat(chunks).reshape(cfg.height, cfg.width, 3)
-    error = error or _first_bad(None, zip(LEAF_NAMES, scene_leaves(scene)))
-    return error or FloatError(), img
+    non-finite value (level by level: the emission, then the children's
+    fields), or else on a non-finite scene leaf whose value reached no
+    level's output (a NaN radius makes its sphere vanish); a clean render
+    returns an error whose get() is None.  The image is render_image's."""
+    first = []
+
+    def check(level, emission, children):
+        if not first:
+            first.extend(_first_bad(level, zip(
+                ("emission",) + tuple(f"children.{f}" for f in CHILD_FIELDS),
+                (emission,) + tuple(children or ()))))
+
+    img = render_image(scene, cfg, check)
+    first += _first_bad(None, zip(LEAF_NAMES, scene_leaves(scene)))
+    return (first[0] if first else FloatError()), img

@@ -109,6 +109,15 @@ def test_world_of_one_without_a_process_group():
                               Mesh(0, 2, torch.device("cpu")))
 
 
+def test_demo_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch, capsys):
+    """Without --cpu the demo takes its card suite on cuda:0, and without a
+    card it exits 2 before it starts a worker."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(demo, "spawn", lambda *a, **k: pytest.fail("spawned"))
+    assert demo.main([]) == 2
+    assert "--cpu" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("name", RENDER)
 def test_sharded_render_is_the_one_device_frame(results, name):
     s = demo.case_summary(results, CASES[name])
