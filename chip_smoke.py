@@ -9,12 +9,14 @@ Phases, each of which must pass (any failure exits non-zero before the
 result lines):
   1. a CUDA device is present; print its nvidia-smi name and power limit;
   2. build every kernel (trace_fwd, trace_bwd, wf_level, wf_compact,
-     wf_level_bwd, wf_uncompact) from raytpu_torch/csrc, one nvcc each, all
-     started together, and wf_level.cu's counting host build (g++
-     -DRT_BVH_COUNT); print every instance's ptxas resources and hold K1's
-     and K2's reference instances' (the previous designs, kept as they
-     were) to the lines they had before the sphere queries became a policy
-     (the policies leave their code as it was);
+     wf_level_bwd, wf_uncompact, oracle) from raytpu_torch/csrc, one nvcc
+     each, all started together, with wf_level.cu's counting host build
+     (g++ -DRT_BVH_COUNT) and oracle.cu's host build (g++); print every
+     instance's ptxas resources and hold K1's and K2's reference
+     instances' (the previous designs, kept as they were) to the lines
+     they had before the sphere queries became a policy (the policies leave
+     their code as it was), and the oracle's stack frames within the stack
+     its entry asks for (a base and one level a unit of its cap);
   3. hold the forward kernel against its plain PyTorch version on the card,
      under the forward contract of tests/test_pallas.py (outlier fraction
      <= 1% at 1e-2*scale, mean abs diff < 1e-3*scale), and bit for bit
@@ -124,6 +126,19 @@ result lines):
      memory per rank; and `torch.distributed.run --nproc-per-node 1 -m
      raytpu_torch.cli --sharded --interleave`, the golden PPM byte for
      byte against phase 6's.  Each path's kernels must have launched.
+ 18. the strict-semantics oracle (raytpu_torch.native, csrc/oracle.cu):
+     the kernel bit for bit, NaN masks equal, against its plain version
+     (raytpu_torch.oracle.render_oracle) on the card on three frames
+     (default 96x72 cap 5, 64x48 cap 6 with double Fresnel, random_scene(24,
+     seed=7) 48x32 2x2 cap 5) and against its g++ host build at mask
+     0, fma_mask=1 and approx_mask=1; `python -m raytpu_torch.cli --oracle
+     --width 400 --height 300` byte for byte against
+     docs/renders/golden_400x300_strict.ppm; the CLI's --oracle at the
+     golden 800x600 and at --oracle-cap 6 --fresnel-double, one oracle
+     launch each, bit for bit against the plain version (so no NaN beyond
+     its); default_scene() on the card and render_single on it one K1
+     launch; the kernel and the plain version timed at 800x600 with CUDA
+     events.
 The last three lines are nvidia-smi's, the kernels JSON and
 {"ok": true, "device": ...}.
 """
@@ -247,6 +262,19 @@ def ptxas_by_entry(log):
             out.setdefault(current, [])
         elif ("registers" in line or "stack frame" in line) and current:
             out[current].append(line.split("ptxas info    : ")[-1].strip())
+    return out
+
+
+def _stack_frames(log):
+    """[(function, its "N bytes stack frame" line)] from an nvcc -Xptxas -v
+    log, device functions included."""
+    out, current = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            current = line.split("Function properties for")[-1].strip()
+        elif "bytes stack frame" in line and current:
+            out.append((current, line.strip()))
+            current = None
     return out
 
 
@@ -1711,6 +1739,190 @@ def sharded_phase(dev, frame11, golden_ppm):
     return launches
 
 
+def oracle_stack_check(oracle):
+    """The oracle's recursion: raytpu_oracle asks for kStackBase + cap x
+    kStackPerLevel bytes of stack a thread.  The sample kernel's ptxas frame
+    must fit kStackBase, and the frames of every device function it may
+    call (trace() and whatever ptxas did not inline) one level's
+    kStackPerLevel."""
+    frames = {name: int(line.split(" bytes stack frame")[0].split()[-1])
+              for name, line in _stack_frames(oracle.build_log)}
+    base = oracle.function("raytpu_oracle_stack_base")()
+    per_level = oracle.function("raytpu_oracle_stack_per_level")()
+    sample = [v for k, v in frames.items() if "oracle_sample_kernel" in k]
+    callees = {k: v for k, v in frames.items() if "_kernel" not in k}
+    check(len(sample) == 1 and sample[0] <= base
+          and any("5trace" in k for k in callees)
+          and sum(callees.values()) <= per_level,
+          f"oracle stack frames {frames} exceed {base} + cap x {per_level}")
+    print(f"phase 2: oracle: the sample kernel's stack frame {sample[0]} <= "
+          f"{base} bytes; its callees' {sum(callees.values())} <= {per_level} "
+          f"bytes a level ({len(callees)} function(s))")
+
+
+def oracle_host_build():
+    """raytpu_torch/csrc/oracle.cu built by g++ as plain C++ (-O2
+    -ffp-contract=off): raytpu_oracle_host, the oracle kernels' per-sample
+    and per-pixel functions on the host.  Returns the bound function."""
+    import ctypes
+
+    from raytpu_torch.kernels.trace_cuda import BUILD_DIR, CSRC
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = BUILD_DIR / "liboracle_host.so"
+    res = subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O2",
+                          "-ffp-contract=off", "-shared", "-fPIC", "-o",
+                          str(path), str(CSRC / "oracle.cu")],
+                         capture_output=True, text=True)
+    check(res.returncode == 0, f"g++ build of oracle.cu failed: {res.stderr}")
+    fn = ctypes.CDLL(str(path)).raytpu_oracle_host
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn.argtypes = [p, i, p, i, p, i, i, f, f, f, i, i, i, i, i, ll, ll, p]
+    fn.restype = None
+    return fn
+
+
+def oracle_frame_same(got, want):
+    """(bit-identical with equal NaN masks, NaN channels of `got`)."""
+    import torch
+
+    got = got.detach().cpu().reshape(-1)
+    want = want.detach().cpu().reshape(-1)
+    nan = torch.isnan(want)
+    same = bool(torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+    return same, int(torch.isnan(got).sum())
+
+
+def oracle_phase(dev, host_fn):
+    """Phase 18: the strict-semantics oracle.  The kernel against its plain
+    version on the card and against its g++ host build under the
+    experiments' masks; the CLI's --oracle as a user runs it (the 400x300
+    strict golden byte for byte, the golden 800x600, cap 6 with double
+    Fresnel), counting the kernel's launches; the builders' default device;
+    the kernel and its plain version timed at 800x600."""
+    import torch
+
+    from raytpu_torch import cli
+    from raytpu_torch.config import RenderConfig
+    from raytpu_torch.image import read_ppm
+    from raytpu_torch.kernels.trace_cuda import TRACE_FWD, scene_tables
+    from raytpu_torch.native import ORACLE, render_native
+    from raytpu_torch.oracle import render_oracle
+    from raytpu_torch.render import render_single
+    from raytpu_torch.scene import default_scene, random_scene
+
+    cases = [("default 96x72 cap5", default_scene(bg_opacity=0.0, device=dev),
+              RenderConfig(width=96, height=72), 5, False),
+             ("default 64x48 cap6 double", default_scene(bg_opacity=0.0, device=dev),
+              RenderConfig(width=64, height=48), 6, True),
+             ("random24 48x32 a2 cap5", random_scene(24, seed=7, device=dev),
+              RenderConfig(width=48, height=32, alias_factor=2), 5, False)]
+    for label, scene, cfg, cap, double in cases:
+        got = render_native(scene, cfg, cap=cap, fresnel_double=double)
+        torch.cuda.synchronize()
+        same, nans = oracle_frame_same(got, render_oracle(
+            scene, cfg, cap=cap, fresnel_double=double))
+        check(same, f"oracle kernel on {label}: differs from its plain version")
+        print(f"phase 18: oracle {label}: bit-identical to the plain version "
+              f"on the card, NaN masks equal ({nans} NaN channels)")
+    scene, cfg = cases[2][1], cases[2][2]
+    s, l, b = scene_tables(scene.to("cpu"))
+    for fma, approx in ((0, 0), (1, 0), (0, 1)):
+        want = torch.full((cfg.num_pixels, 3), float("nan"))
+        host_fn(s.data_ptr(), scene.spheres.count, l.data_ptr(),
+                scene.lights.count, b.data_ptr(), cfg.width, cfg.height,
+                cfg.zoom, cfg.image_world_width, cfg.image_world_height,
+                cfg.alias_factor, 5, 0, fma, approx, 0, cfg.num_pixels,
+                want.data_ptr())
+        got = render_native(scene, cfg, fma_mask=fma, approx_mask=approx)
+        torch.cuda.synchronize()
+        same, _ = oracle_frame_same(got, want)
+        check(same, f"oracle kernel at fma_mask={fma} approx_mask={approx}: "
+              f"differs from its host build")
+    print("phase 18: oracle random24 48x32 a2 cap5: bit-identical to its g++ "
+          "host build at mask 0, fma_mask=1 and approx_mask=1")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ppm = os.path.join(tmp, "strict.ppm")
+        res = subprocess.run(
+            [sys.executable, "-m", "raytpu_torch.cli", "--oracle", "--width",
+             "400", "--height", "300", "-o", ppm], cwd=tmp,
+            env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+            text=True, timeout=300)
+        check(res.returncode == 0, f"cli --oracle: {res.stdout}{res.stderr}")
+        golden = read_ppm(os.path.join(ROOT, "docs", "renders",
+                                       "golden_400x300_strict.ppm"))
+        check((read_ppm(ppm) == golden).all(), "python -m raytpu_torch.cli "
+              "--oracle --width 400 --height 300 differs from "
+              "docs/renders/golden_400x300_strict.ppm")
+        print("phase 18: python -m raytpu_torch.cli --oracle --width 400 "
+              "--height 300: byte-identical to docs/renders/"
+              "golden_400x300_strict.ppm")
+        launches = {}
+        for label, flags, cap, double in (
+                ("golden 800x600", [], 5, False),
+                ("800x600 --oracle-cap 6 --fresnel-double",
+                 ["--oracle-cap", "6", "--fresnel-double"], 6, True)):
+            captured = []
+            native_render = render_native
+
+            def spy(*args, **kwargs):
+                out = native_render(*args, **kwargs)
+                captured.append(out)
+                return out
+
+            import raytpu_torch.native as native
+            native.render_native = spy
+            try:
+                ORACLE.launches = 0
+                rc = cli.main(["--oracle", *flags, "-o", ppm])
+                torch.cuda.synchronize()
+                launches[label] = ORACLE.launches
+            finally:
+                native.render_native = native_render
+            check(rc == 0, f"cli --oracle {label}: returned {rc}")
+            check(launches[label] == 1 and len(captured) == 1,
+                  f"cli --oracle {label}: {launches[label]} oracle launches")
+            img = captured[0]
+            check(tuple(img.shape) == (600, 800, 3), f"oracle image {tuple(img.shape)}")
+            plain = render_oracle(default_scene(bg_opacity=0.0, device=dev),
+                                  RenderConfig(), cap=cap, fresnel_double=double)
+            same, nans = oracle_frame_same(img, plain)
+            plain_nans = int(torch.isnan(plain).sum())
+            check(same and nans <= plain_nans, f"cli --oracle {label}: differs "
+                  f"from the plain version ({nans} NaN channels, plain "
+                  f"{plain_nans})")
+            print(f"phase 18: cli --oracle {label}: oracle launches "
+                  f"{launches[label]}; bit-identical to the plain version, NaN "
+                  f"channels {nans} (plain {plain_nans})")
+
+    check(default_scene().device.type == "cuda",
+          "default_scene() did not land on the card")
+    TRACE_FWD.launches = 0
+    render_single(default_scene(), RenderConfig(width=64, height=48, max_depth=2,
+                                                alias_factor=1))
+    torch.cuda.synchronize()
+    check(TRACE_FWD.launches == 1,
+          f"render_single(default_scene()) launched K1 {TRACE_FWD.launches} times")
+    print("phase 18: default_scene() lands on cuda; render_single on it "
+          "launched trace_fwd once")
+
+    scene, golden_cfg = default_scene(bg_opacity=0.0, device=dev), RenderConfig()
+    times = {}
+    for cap, double in ((5, False), (6, True)):
+        k_ms, _ = events_ms(lambda: render_native(scene, golden_cfg, cap=cap,
+                                                  fresnel_double=double), reps=5)
+        p_ms, _ = events_ms(lambda: render_oracle(scene, golden_cfg, cap=cap,
+                                                  fresnel_double=double),
+                            reps=1, warmup=0)
+        times[f"cap{cap}"] = (k_ms, p_ms)
+        print(f"phase 18: oracle 800x600 a3 cap {cap}{' double' if double else ''}: "
+              f"kernel {k_ms:.3f} ms (median of 5 after 1 warm-up), plain "
+              f"version {p_ms:.3f} ms (one run), CUDA events")
+    return launches, times
+
+
 def main() -> int:
     import torch
 
@@ -1735,6 +1947,7 @@ def main() -> int:
                                                  scene_tables)
     from raytpu_torch.kernels.wavefront import (WF_COMPACT, WF_LEVEL,
                                                 WF_LEVEL_BWD, WF_UNCOMPACT)
+    from raytpu_torch.native import ORACLE
     from raytpu_torch.scene import (default_scene, random_scene,
                                     scene_from_leaves, scene_leaves,
                                     single_sphere_scene)
@@ -1746,17 +1959,20 @@ def main() -> int:
     print(f"phase 1: device {name} | nvidia-smi: {smi}")
 
     # Phase 2: build, one nvcc per source, all at once (and the counting
-    # host build of the level kernel for phase 12's bound).
+    # host build of the level kernel for phase 12's bound, and the oracle's
+    # host build for phase 18).
     kernels = (TRACE_FWD, TRACE_BWD, WF_LEVEL, WF_COMPACT, WF_LEVEL_BWD,
-               WF_UNCOMPACT)
+               WF_UNCOMPACT, ORACLE)
     for k in kernels:  # a cached library has no ptxas lines to hold
         if k.library_path().exists():
             k.library_path().unlink()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels) + 1) as pool:
+    with ThreadPoolExecutor(len(kernels) + 2) as pool:
         counting = pool.submit(build_counting_host)
+        oracle_host = pool.submit(oracle_host_build)
         nvcc_s = list(pool.map(lambda k: k.build(), kernels))
         count_lib = counting.result()
+        oracle_host_fn = oracle_host.result()
     for k, s in zip(kernels, nvcc_s):
         k.function()
         print(f"phase 2: built {k.library_path().name} (nvcc {s:.2f} s)")
@@ -1771,9 +1987,10 @@ def main() -> int:
             check(len(got) == 1 and sorted(got[0]) == sorted(want),
                   f"{k.name}: {kernel}'s ptxas resources changed: {got}")
             print(f"phase 2: {k.name}: {kernel}'s ptxas resources are unchanged")
+    oracle_stack_check(ORACLE)
     print(f"phase 2: all {len(kernels)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s; the counting host build of "
-          f"wf_level.cu with g++")
+          f"wf_level.cu and the host build of oracle.cu with g++")
 
     # Phases 3 and 4: each kernel against its plain version on the card.
     ds = default_scene(device=dev)
@@ -2070,6 +2287,7 @@ def main() -> int:
     k4, k6 = training_phases(dev)
     fault_phase(dev)
     sharded = sharded_phase(dev, frame11, golden_ppm)
+    oracle_launches, oracle_times = oracle_phase(dev, oracle_host_fn)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
@@ -2105,6 +2323,10 @@ def main() -> int:
          "replaces": "raytpu/kernels/wavefront.py:591", **k6}]
     print(f"phase 17: each kernel's launches on the sharded paths "
           f"{json.dumps(sharded)}")
+    print("phase 18: oracle kernel vs plain version at 800x600 a3, ms "
+          + json.dumps({"kernel_ms": {k: v[0] for k, v in oracle_times.items()},
+                        "plain_ms": {k: v[1] for k, v in oracle_times.items()},
+                        "launches": oracle_launches}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -4,6 +4,10 @@ The port of the JAX package `raytpu` (which stays as its reference) to
 PyTorch with hand-written CUDA kernels for NVIDIA Hopper.  It imports torch
 and never jax.
 
+Every scene builder puts its scene on this process's card unless given a
+device (device="cpu" for the CPU), and raises without a card; every path
+then runs where the scene lies.
+
 Public surface:
     raytpu_torch.config     RenderConfig, BENCH_CONFIGS
     raytpu_torch.scene      Scene / Spheres / Lights / Medium dataclasses, builders
@@ -21,7 +25,12 @@ Public surface:
                             fit, finite differences
     raytpu_torch.parallel   the pixel mesh and its collectives on
                             torch.distributed
-    raytpu_torch.utils      CUDA-event timer, fit checkpoints, checked render
+    raytpu_torch.oracle     the strict-semantics oracle (the reference's
+                            quirks bug for bug) in tensors: the plain
+                            version of the oracle kernel
+    raytpu_torch.native     the oracle kernel on the card (render_native)
+    raytpu_torch.utils      CUDA-event timer, profiler traces (profile_trace,
+                            scoped), fit checkpoints, checked render
     raytpu_torch.cli        command-line driver
     raytpu_torch.examples   runnable examples (fit_scene, fit_golden_scene,
                             animate)

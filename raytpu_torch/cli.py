@@ -11,11 +11,18 @@ Examples:
   python -m raytpu_torch.cli --list-devices
   python -m torch.distributed.run --nproc-per-node 2 -m raytpu_torch.cli \
       --sharded --interleave -o out.ppm    # pixels split over 2 ranks
+  python -m raytpu_torch.cli --oracle --width 400 --height 300 -o strict.ppm
+                                           # the reference's strict semantics
 
 The scene lives on the first CUDA device (under torchrun, the card its
-LOCAL_RANK names), or on the CPU with --cpu; without --cpu and without a
-CUDA device the CLI exits 2.  --backend auto then picks the CUDA kernel
-(or the wavefront past the measured crossover) or the eager tracer.
+LOCAL_RANK names; --device N picks cuda:N), or on the CPU with --cpu;
+without --cpu and without a CUDA device the CLI exits 2.  --backend auto
+then picks the CUDA kernel (or the wavefront past the measured crossover)
+or the eager tracer.  --oracle renders the reference's strict semantics
+(its quirks bug for bug) through the oracle kernel (raytpu_torch.native),
+or under --cpu the tensor oracle (raytpu_torch.oracle); it ignores
+--backend, --time, --sharded and the wavefront's options, as raytpu's
+does.
 --sharded renders over the process group torchrun describes ("nccl" on
 cards, "gloo" with --cpu), or over a world of one without torchrun; rank
 0 writes the PPM and the --time line.  A wavefront render that drops
@@ -40,8 +47,6 @@ from raytpu_torch.parallel.mesh import (describe_devices, initialize_distributed
 
 # Flags of raytpu.cli whose path the port does not have.
 _NOT_PORTED = {
-    "oracle": "--oracle: the strict numpy oracle stays in raytpu (ROADMAP "
-              "Queue 1, 'Not to port'); run python -m raytpu.cli --oracle",
     "streams": "--streams: measured neutral on the TPU, not ported (ROADMAP "
                "Queue 1, 'Not to port')",
 }
@@ -89,6 +94,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strict-drops", action="store_true",
                    help="exit 3 if the wavefront drops any live ray, "
                         "instead of warning")
+    p.add_argument("--oracle", action="store_true",
+                   help="render with the strict-semantics oracle (the oracle "
+                        "kernel; the tensor oracle under --cpu)")
+    p.add_argument("--oracle-cap", type=int, default=5,
+                   help="oracle trace-stack capacity (5 = the GPU build "
+                        "that produced testPPM.ppm; 6 = the CPU build)")
+    p.add_argument("--fresnel-double", action="store_true",
+                   help="oracle uses double-precision Fresnel intermediates "
+                        "(the reference CPU build, raytracer.h:380-381); "
+                        "default float matches the GPU golden")
+    p.add_argument("--device", type=int, default=None,
+                   help="render on one specific device index, cuda:N (the "
+                        "reference's unused --device picker, "
+                        "device_picker.h:70-119); under --cpu the CPU is "
+                        "device 0; under --sharded each rank keeps its card")
     p.add_argument("--cpu", action="store_true",
                    help="render on the CPU (default: the first CUDA device)")
     p.add_argument("--list-devices", action="store_true")
@@ -103,7 +123,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --sharded: give each rank the strided pixel set "
                         "{rank + j*ranks} instead of a contiguous block")
     # Accepted so that raytpu's command lines fail with a clear message.
-    p.add_argument("--oracle", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--streams", type=int, default=None, help=argparse.SUPPRESS)
     return p
 
@@ -169,8 +188,20 @@ def main(argv=None) -> int:
         print("error: no CUDA device found; pass --cpu to render on the CPU",
               file=sys.stderr)
         return 2
-    device = torch.device("cpu") if args.cpu else local_device()
-    joined = args.sharded and "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if args.device is not None:
+        n_devices = 1 if args.cpu else torch.cuda.device_count()
+        if not 0 <= args.device < n_devices:
+            print(f"error: device {args.device} not in [0, {n_devices})",
+                  file=sys.stderr)
+            return 2
+    if args.cpu:
+        device = torch.device("cpu")
+    elif args.device is not None and not args.sharded:
+        device = torch.device("cuda", args.device)
+    else:
+        device = local_device()
+    joined = (args.sharded and not args.oracle and "WORLD_SIZE" in os.environ
+              and not dist.is_initialized())
     if joined:
         initialize_distributed("env://", backend="gloo" if args.cpu else "nccl")
     try:
@@ -180,12 +211,24 @@ def main(argv=None) -> int:
             dist.destroy_process_group()
 
 
+def _oracle_image(args, scene, cfg):
+    """The strict-semantics render: the oracle kernel on a card, the tensor
+    oracle on the CPU."""
+    if scene.device.type == "cuda":
+        from raytpu_torch.native import render_native
+        return render_native(scene, cfg, cap=args.oracle_cap,
+                             fresnel_double=args.fresnel_double)
+    from raytpu_torch.oracle import render_oracle
+    return render_oracle(scene, cfg, cap=args.oracle_cap,
+                         fresnel_double=args.fresnel_double)
+
+
 def _render(args, device) -> int:
     cfg = RenderConfig(width=args.width, height=args.height, zoom=args.zoom,
                        alias_factor=args.alias_factor, max_depth=args.max_depth,
                        chunk_pixels=args.chunk_pixels)
     scene = make_scene(args, device)
-    mesh = make_mesh(device) if args.sharded else None
+    mesh = make_mesh(device) if args.sharded and not args.oracle else None
     lead = mesh is None or mesh.rank == 0  # the one rank that writes files
     if args.save_scene and lead:
         from raytpu_torch.scene_io import save_scene
@@ -199,7 +242,9 @@ def _render(args, device) -> int:
                if v is not None}
     on_drop = "raise" if args.strict_drops else "warn"
     try:
-        if args.timeit:
+        if args.oracle:  # first, as in raytpu.cli: the other flags are ignored
+            img = _oracle_image(args, scene, cfg)
+        elif args.timeit:
             if scene.device.type != "cuda":
                 print("error: --time measures on a CUDA device; none is "
                       "available", file=sys.stderr)

@@ -51,9 +51,10 @@ class Mesh:
 
 def local_device() -> torch.device:
     """The card of this process: LOCAL_RANK (torchrun's) modulo the cards
-    present, or the CPU without a card."""
+    present.  Raises RuntimeError without a card: the CPU is never taken
+    in its place, and a caller that wants it passes device="cpu"."""
     if not torch.cuda.is_available():
-        return torch.device("cpu")
+        raise RuntimeError("no CUDA device; pass device='cpu'")
     local = int(os.environ.get("LOCAL_RANK", 0))
     return torch.device("cuda", local % torch.cuda.device_count())
 
@@ -61,7 +62,7 @@ def local_device() -> torch.device:
 def make_mesh(device=None) -> Mesh:
     """The mesh over the world of the initialised process group, or a world
     of one when none is initialised.  `device` is where this rank renders
-    (default: local_device())."""
+    (default: local_device(), which raises without a card)."""
     device = local_device() if device is None else torch.device(device)
     if not dist.is_initialized():
         return Mesh(0, 1, device)

@@ -70,7 +70,7 @@ def _wf_wins_train(n_spheres: int, cfg: RenderConfig) -> bool:
             and n_spheres * cfg.max_depth >= _WF_MIN_TRAIN_WORK)
 
 
-def resolve_backend(backend: str = "auto", device="cpu", scene=None,
+def resolve_backend(backend: str, device, scene=None,
                     cfg: RenderConfig | None = None) -> str:
     """Resolve "auto" to a concrete backend for a scene on `device`.  With
     `scene` and `cfg`, "auto" on a CUDA device is the wavefront where the

@@ -3,7 +3,10 @@
 The counterpart of raytpu.scene.  Each field is one contiguous (N, ...)
 tensor; materials are folded into `Spheres` (one material per sphere, as in
 the reference).  The builders draw every number with numpy exactly as
-raytpu.scene does, so both packages build bit-identical scenes.
+raytpu.scene does, so both packages build bit-identical scenes.  Every
+builder puts its scene on this process's card unless given a device, and
+raises without one (parallel.mesh.local_device): a CPU scene is asked for
+with device="cpu".
 """
 
 from __future__ import annotations
@@ -12,6 +15,13 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from raytpu_torch.parallel.mesh import local_device
+
+
+def _device(device) -> torch.device:
+    """`device`, or the card of this process (local_device) when None."""
+    return local_device() if device is None else torch.device(device)
 
 
 def _to(obj, device):
@@ -97,8 +107,10 @@ def make_material(gloss_factor, matte_col, gloss_col, opacity, ior):
 
 
 def build_scene(sphere_specs, light_specs, bg_matte=(0.0, 0.0, 0.0),
-                bg_ior=1.0, bg_opacity=0.0, device="cpu") -> Scene:
-    """Assemble a Scene on `device` from per-object specs.
+                bg_ior=1.0, bg_opacity=0.0, device=None) -> Scene:
+    """Assemble a Scene on `device` from per-object specs.  `device` None
+    is this process's card (parallel.mesh.local_device), which raises
+    without one: a CPU scene is asked for with device="cpu".
 
     sphere_specs: iterable of (pos(3,), radius, material-dict from make_material)
     light_specs: iterable of (pos(3,), col(3,))
@@ -113,6 +125,7 @@ def build_scene(sphere_specs, light_specs, bg_matte=(0.0, 0.0, 0.0),
         iors.append(mat["ior"])
     lpos = [np.asarray(p, np.float32) for p, _ in light_specs]
     lcol = [np.asarray(c, np.float32) for _, c in light_specs]
+    device = _device(device)
 
     def f32(x):
         return torch.tensor(np.asarray(x, np.float32), device=device)
@@ -128,7 +141,7 @@ def build_scene(sphere_specs, light_specs, bg_matte=(0.0, 0.0, 0.0),
     )
 
 
-def default_scene(bg_opacity: float = 0.0, device="cpu") -> Scene:
+def default_scene(bg_opacity: float = 0.0, device=None) -> Scene:
     """The reference's hard-coded golden scene (main.cpp:104-168): three
     spheres, two half-white lights, a matte-black background of IOR 1."""
     green = (0.4, 0.5, 0.7)   # "greenCol", main.cpp:119-120
@@ -153,7 +166,7 @@ def default_scene(bg_opacity: float = 0.0, device="cpu") -> Scene:
     )
 
 
-def single_sphere_scene(device="cpu") -> Scene:
+def single_sphere_scene(device=None) -> Scene:
     """BASELINE config 1: one opaque matte sphere, one light, depth 0."""
     mat = make_material(0.0, (0.9, 0.4, 0.2), (0.0, 0.0, 0.0), opacity=1.0, ior=1.0)
     return build_scene(
@@ -164,7 +177,7 @@ def single_sphere_scene(device="cpu") -> Scene:
 
 
 def random_scene(num_spheres: int, num_lights: int = 4, seed: int = 0,
-                 spread: float = 40.0, device="cpu") -> Scene:
+                 spread: float = 40.0, device=None) -> Scene:
     """Procedural scene for the large benchmark configs (BASELINE config 5:
     256 spheres).  Draws from numpy's default_rng(seed) in the same order as
     raytpu.scene.random_scene, so the two scenes are bit-identical."""
@@ -219,10 +232,12 @@ def scene_to_numpy(scene: Scene) -> dict:
             for key, t in zip(LEAF_NAMES, scene_leaves(scene))}
 
 
-def scene_from_numpy(d: dict, device="cpu") -> Scene:
-    """Build the port's Scene on `device` from a dict of numpy leaves keyed
-    "spheres.pos", ..., "bg.opacity" (for example raytpu's Scene pytree
-    leaves converted with np.asarray) — the port's scene conversion."""
+def scene_from_numpy(d: dict, device=None) -> Scene:
+    """Build the port's Scene on `device` (None: build_scene's default)
+    from a dict of numpy leaves keyed "spheres.pos", ..., "bg.opacity" (for
+    example raytpu's Scene pytree leaves converted with np.asarray) — the
+    port's scene conversion."""
+    device = _device(device)
     return scene_from_leaves(
         torch.tensor(np.asarray(d[key], np.float32), device=device)
         for key in LEAF_NAMES)

@@ -48,7 +48,9 @@ def scene_to_dict(scene: Scene) -> dict:
     }
 
 
-def scene_from_dict(data: dict, device="cpu") -> Scene:
+def scene_from_dict(data: dict, device=None) -> Scene:
+    """The Scene a JSON dict describes, on `device` (None: this process's
+    card, as build_scene)."""
     sphere_specs = [
         (s["pos"], s["radius"],
          dict(matte=np.asarray(s["matte"], np.float32),
@@ -71,6 +73,8 @@ def save_scene(scene: Scene, path: str) -> None:
         json.dump(scene_to_dict(scene), f, indent=2)
 
 
-def load_scene(path: str, device="cpu") -> Scene:
+def load_scene(path: str, device=None) -> Scene:
+    """The scene of a JSON file, on `device` (None: this process's card, as
+    build_scene)."""
     with open(path) as f:
         return scene_from_dict(json.load(f), device=device)

@@ -1,7 +1,9 @@
-"""Utilities: CUDA-event timing, fit checkpoints, the checked render."""
+"""Utilities: CUDA-event timing, profiler traces and named spans, fit
+checkpoints, the checked render."""
 
 from raytpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from raytpu_torch.utils.debug import checked_render
-from raytpu_torch.utils.profiling import Timer
+from raytpu_torch.utils.profiling import Timer, profile_trace, scoped
 
-__all__ = ["Timer", "checked_render", "load_checkpoint", "save_checkpoint"]
+__all__ = ["Timer", "checked_render", "load_checkpoint", "profile_trace",
+           "save_checkpoint", "scoped"]

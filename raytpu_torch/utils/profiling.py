@@ -1,9 +1,17 @@
-"""Timing on the card: named sections between CUDA events recorded on the
-current stream (the counterpart of raytpu.utils.profiling.Timer)."""
+"""Timing and tracing (the counterpart of raytpu.utils.profiling):
+
+  * Timer         — named sections between CUDA events recorded on the
+                    current stream.
+  * profile_trace — a torch.profiler trace of a block (CPU, and CUDA where
+                    a card is present), written to a directory for
+                    Perfetto or TensorBoard.
+  * scoped        — a decorator naming a function's span in that trace.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -37,3 +45,33 @@ class Timer:
         torch.cuda.synchronize(self.device)
         return {name: [s.elapsed_time(e) / 1e3 for s, e in pairs]
                 for name, pairs in self._events.items()}
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Profile the block with torch.profiler: CPU activity, and CUDA
+    activity where a card is present.  On exit the trace is written into
+    `log_dir` as a Chrome trace (*.pt.trace.json), which Perfetto opens and
+    TensorBoard's profiler plugin reads.  Yields the profiler."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+def scoped(name: str):
+    """Decorator: run the function inside torch.profiler.record_function
+    (`name`), so its span carries that name in a profile_trace trace."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco

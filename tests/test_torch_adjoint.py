@@ -119,17 +119,17 @@ def assert_close_masked(name, got, want, rtol=1e-3):
 
 
 CASES = {
-    "default 32x16 d2": (tscene.default_scene,
+    "default 32x16 d2": (lambda: tscene.default_scene(device="cpu"),
                          dict(width=32, height=16, max_depth=2, alias_factor=1), {}),
-    "random8 32x16 d2": (lambda: tscene.random_scene(8, seed=3),
+    "random8 32x16 d2": (lambda: tscene.random_scene(8, seed=3, device="cpu"),
                          dict(width=32, height=16, max_depth=2, alias_factor=1), {}),
     # At depth 4 and alias 2 one pixel differs by 6e-6*scale, under the
     # mask, and moves a small position coordinate by 4%: the measured
     # agreement is 2.6e-4 at depth 3 and 3e-6 at depth 4 with alias 1.
-    "default 24x16 d3 a2 strided": (tscene.default_scene,
+    "default 24x16 d3 a2 strided": (lambda: tscene.default_scene(device="cpu"),
                                     dict(width=24, height=16, max_depth=3, alias_factor=2),
                                     dict(offset=7, stride=2, count=200)),
-    "default 24x16 d4": (tscene.default_scene,
+    "default 24x16 d4": (lambda: tscene.default_scene(device="cpu"),
                          dict(width=24, height=16, max_depth=4, alias_factor=1), {}),
 }
 
@@ -212,7 +212,7 @@ def test_node_adjoint_matches_autograd_of_trace_level(host):
     against the eager _trace_level and torch.autograd, per ray, for seeded
     states and seeded cotangents of the emission and of both children.
     Absent children (and rays whose forward differs) take no cotangent."""
-    scene = tscene.default_scene()
+    scene = tscene.default_scene(device="cpu")
     rng = np.random.default_rng(7)
     n_rays = 96
     states = _seeded_states(scene, rng, n_rays)
@@ -265,7 +265,7 @@ def test_walk_with_more_lights_than_a_bit_word(host):
     (rtol 5e-2 where |ref| > 1e-3*scale): both walks are off autograd by
     the same 5.4e-3 on a light position here, the adjoint's float32 sums
     over 40 lights taken in another order than autograd's."""
-    scene = tscene.random_scene(6, num_lights=40, seed=1, spread=5.0)
+    scene = tscene.random_scene(6, num_lights=40, seed=1, spread=5.0, device="cpu")
     cfg = tconfig.RenderConfig(width=24, height=16, max_depth=2, alias_factor=1)
     g = masked_cotangent(host_forward(host, scene, cfg),
                          render_pixels_torch(scene, cfg))

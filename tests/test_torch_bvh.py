@@ -45,10 +45,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 CLOSEST, BLOCKED, CONTAIN = 0, 1, 2
 
 SCENES = {
-    "default": tscene.default_scene,
-    "random24": lambda: tscene.random_scene(24),
-    "random256": lambda: tscene.random_scene(256, seed=3),
-    "random3000": lambda: tscene.random_scene(3000, seed=3),
+    "default": lambda: tscene.default_scene(device="cpu"),
+    "random24": lambda: tscene.random_scene(24, device="cpu"),
+    "random256": lambda: tscene.random_scene(256, seed=3, device="cpu"),
+    "random3000": lambda: tscene.random_scene(3000, seed=3, device="cpu"),
 }
 
 
@@ -243,7 +243,7 @@ def small_far_scene(extent, seed):
     """Tables (spheres, lights) of random_scene(64)'s materials with the
     spheres moved to seeded points of [-extent, extent]^3 and shrunk to a
     radius of 0.005-0.01, and its lights moved into the same cube."""
-    spheres, lights, _ = scene_tables(tscene.random_scene(64, seed=seed))
+    spheres, lights, _ = scene_tables(tscene.random_scene(64, seed=seed, device="cpu"))
     rng = np.random.default_rng(seed)
     spheres, lights = spheres.clone(), lights.clone()
     spheres[0:3] = torch.from_numpy(rng.uniform(-extent, extent, (3, 64)).astype(np.float32))
@@ -292,7 +292,7 @@ def test_ties_take_the_lowest_index(host, reverse):
     """Every sphere of random_scene(24) twice (index i and i + 24, equal t
     along every ray); with `reverse` the leaves hold them in reverse index
     order, so the higher index is tested first."""
-    spheres, lights, _ = scene_tables(tscene.random_scene(24))
+    spheres, lights, _ = scene_tables(tscene.random_scene(24, device="cpu"))
     twice = torch.cat([spheres, spheres], dim=1).contiguous()
     lo, hi = sphere_boxes(twice, lights)
     n = twice.shape[1]

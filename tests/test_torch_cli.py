@@ -70,14 +70,48 @@ def test_scene_file_round_trip_and_flags(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--oracle", "--sharded"], ["--streams", "2", "--interleave"], ["--oracle"],
-    ["--oracle", "--sharded", "--strict-drops"],
-    ["--streams", "2", "--interleave", "--chunk-rays", "1024"],
-    ["--oracle", "--capacity-factor", "2.0"], ["--streams", "2"],
+    ["--streams", "2", "--interleave"],
+    ["--streams", "2", "--interleave", "--chunk-rays", "1024"], ["--streams", "2"],
 ])
 def test_unported_flags_name_the_roadmap(flags, capsys):
     assert tcli.main(flags) == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--oracle", "--sharded"], ["--oracle"],
+    ["--oracle", "--sharded", "--strict-drops"],
+    ["--oracle", "--capacity-factor", "2.0"],
+])
+def test_oracle_matches_raytpu_oracle(flags, tmp_path):
+    """--cpu --oracle renders through the tensor oracle, ignoring the other
+    paths' flags as raytpu.cli does: the PPM is raytpu's strict render of
+    the same frame (cap 5, float Fresnel, the CLI's defaults), tone-mapped,
+    byte for byte."""
+    import raytpu.config as jconfig
+    import raytpu.oracle as joracle
+    import raytpu.scene as jscene
+    from raytpu_torch.image import tone_map
+
+    path = str(tmp_path / "oracle.ppm")
+    assert tcli.main(SMALL + flags + ["-o", path]) == 0
+    want = joracle.render_oracle(
+        jscene.default_scene(bg_opacity=0.0),
+        jconfig.RenderConfig(width=32, height=24, alias_factor=1), cap=5,
+        fresnel_double=False)
+    np.testing.assert_array_equal(read_ppm(path), tone_map(want))
+
+
+def test_device_picks_one_device(tmp_path, capsys):
+    """--device N renders on device N; under --cpu the CPU is the one
+    device, so 0 renders and 1 exits 2, as raytpu.cli's range check."""
+    a, b = str(tmp_path / "a.ppm"), str(tmp_path / "b.ppm")
+    assert tcli.main(SMALL + ["--device", "0", "-o", a]) == 0
+    assert tcli.main(SMALL + ["-o", b]) == 0
+    np.testing.assert_array_equal(read_ppm(a), read_ppm(b))
+    capsys.readouterr()
+    assert tcli.main(SMALL + ["--device", "1", "-o", a]) == 2
+    assert "device 1 not in [0, 1)" in capsys.readouterr().err
 
 
 def test_time_and_cuda_backend_need_a_card(capsys):
@@ -94,13 +128,24 @@ def test_time_and_cuda_backend_need_a_card(capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+def test_oracle_needs_a_card_or_cpu(capsys):
+    """--oracle without --cpu and without a card exits 2, as every other
+    path does: the tensor oracle is never taken in the kernel's place."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    no_cpu = [a for a in SMALL if a != "--cpu"]
+    assert tcli.main(no_cpu + ["--oracle", "-o", "unused.ppm"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
 def test_port_never_imports_jax():
     code = ("import sys, raytpu_torch, raytpu_torch.cli, raytpu_torch.kernels, "
             "raytpu_torch.render, raytpu_torch.grad, raytpu_torch.utils, "
             "raytpu_torch.utils.debug, raytpu_torch.parallel, "
             "raytpu_torch.examples.fit_scene, raytpu_torch.examples.animate, "
             "raytpu_torch.examples.fit_golden_scene, "
-            "raytpu_torch.tools.multiprocess_demo; "
+            "raytpu_torch.tools.multiprocess_demo, raytpu_torch.oracle, "
+            "raytpu_torch.native, raytpu_torch.utils.profiling; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'raytpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -1,6 +1,6 @@
 """The CUDA kernels (dense forward and backward, the wavefront's level and
-compaction and their backwards) against their plain PyTorch versions, on a
-card, and the paths that launch them.
+compaction and their backwards, the strict-semantics oracle) against their
+plain PyTorch versions, on a card, and the paths that launch them.
 
 This file imports torch and the port only, so it runs where jax is absent;
 tests/conftest.py imports jax, so on such a machine run it as
@@ -23,7 +23,10 @@ dense backward to its reference instance (the previous design) within
 1e-5 x scale.  Beyond the dense kernels' bounds (depth above MAX_DEPTH,
 more than MAX_SPHERES spheres or MAX_LIGHTS lights) "auto" renders and
 trains through the wavefront, held to the plain versions; a pixel subset
-trains through the eager tracer.
+trains through the eager tracer.  The oracle kernel is held bit for bit,
+NaN masks equal, to its plain version (raytpu_torch.oracle) and to its g++
+host build under the golden-residual experiments' masks; the scene
+builders put a scene built without a device on the card.
 """
 
 import dataclasses
@@ -710,7 +713,8 @@ def test_pixel_subset_trains_on_a_cuda_scene(dev):
     for fn in (image_loss, exposure_image_loss):
         got = fn(default_scene(device=dev), cfg, torch.tensor(target, device=dev),
                  gid=torch.tensor(gid, device=dev))
-        want = fn(default_scene(), cfg, torch.tensor(target), gid=torch.tensor(gid))
+        want = fn(default_scene(device="cpu"), cfg, torch.tensor(target),
+                  gid=torch.tensor(gid))
         np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
         with pytest.raises(ValueError):
             fn(default_scene(device=dev), cfg, torch.tensor(target, device=dev),
@@ -772,3 +776,117 @@ def test_sharded_paths_in_a_world_of_one(dev, capsys):
                      "--time"]) == 0
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert stats["ranks"] == 1 and stats["interleave"] is True
+
+
+def test_builders_default_to_the_card(dev, tmp_path):
+    """Without a device every builder and load_scene put the scene on the
+    card, and render_single on it launches K1 once."""
+    from raytpu_torch.scene import single_sphere_scene
+    from raytpu_torch.scene_io import load_scene, save_scene
+
+    path = str(tmp_path / "scene.json")
+    save_scene(default_scene(device="cpu"), path)
+    for scene in (default_scene(), single_sphere_scene(), random_scene(4, seed=1),
+                  load_scene(path)):
+        assert scene.device.type == "cuda"
+    before = trace_cuda.TRACE_FWD.launches
+    img = render_single(default_scene(),
+                        RenderConfig(width=32, height=24, max_depth=2, alias_factor=1))
+    torch.cuda.synchronize()
+    assert trace_cuda.TRACE_FWD.launches == before + 1
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+
+
+# The oracle kernel (raytpu_torch/csrc/oracle.cu): its plain version's cases
+# of tests/test_torch_oracle.py at their sizes, bit for bit with equal NaN
+# masks, and its host build under the experiments' masks.
+ORACLE_FRAMES = {
+    "default 96x72 cap5": (lambda d: default_scene(bg_opacity=0.0, device=d),
+                           RenderConfig(width=96, height=72), 5, False),
+    "default 64x48 cap6 double": (lambda d: default_scene(bg_opacity=0.0, device=d),
+                                  RenderConfig(width=64, height=48), 6, True),
+    "random24 48x32 a2 cap5": (lambda d: random_scene(24, seed=7, device=d),
+                               RenderConfig(width=48, height=32, alias_factor=2),
+                               5, False),
+}
+
+
+def same_oracle_bits(got, want) -> bool:
+    got, want = got.detach().cpu().reshape(-1), want.detach().cpu().reshape(-1)
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+@pytest.mark.parametrize("name", sorted(ORACLE_FRAMES))
+def test_oracle_kernel_matches_its_plain_version(dev, name):
+    from raytpu_torch.native import ORACLE, render_native
+    from raytpu_torch.oracle import render_oracle
+
+    build, cfg, cap, double = ORACLE_FRAMES[name]
+    scene = build(dev)
+    before = ORACLE.launches
+    got = render_native(scene, cfg, cap=cap, fresnel_double=double)
+    torch.cuda.synchronize()
+    assert ORACLE.launches == before + 1
+    assert got.shape == (cfg.height, cfg.width, 3) and got.device == scene.device
+    assert same_oracle_bits(got, render_oracle(scene, cfg, cap=cap,
+                                               fresnel_double=double))
+
+
+@pytest.fixture(scope="module")
+def oracle_host(tmp_path_factory):
+    import ctypes
+    import shutil
+    import subprocess
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the CPU harness of the CUDA sources")
+    src = trace_cuda.CSRC / "oracle.cu"
+    lib_path = tmp_path_factory.mktemp("oracle") / "liboracle_host.so"
+    subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib_path)).raytpu_oracle_host
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn.argtypes = [p, i, p, i, p, i, i, f, f, f, i, i, i, i, i, ll, ll, p]
+    fn.restype = None
+    return fn
+
+
+@pytest.mark.parametrize("masks", [(0, 0), (1, 0), (0, 1), (4, 0), (0, 32)],
+                         ids=lambda m: f"fma{m[0]}_approx{m[1]}")
+def test_oracle_kernel_matches_its_host_build(dev, oracle_host, masks):
+    """Under the golden-residual experiments' masks (the explicit fmaf,
+    reciprocal and nextafterf on the card), on the whole frame and on an
+    offset/count range."""
+    from raytpu_torch.native import render_native
+
+    fma, approx = masks
+    scene = random_scene(24, seed=7, device=dev)
+    cfg = RenderConfig(width=48, height=32, alias_factor=2)
+    s, l, b = trace_cuda.scene_tables(scene.to("cpu"))
+    for offset, count in ((0, cfg.num_pixels), (100, 333)):
+        want = torch.full((count, 3), float("nan"))
+        oracle_host(s.data_ptr(), scene.spheres.count, l.data_ptr(),
+                    scene.lights.count, b.data_ptr(), cfg.width, cfg.height,
+                    cfg.zoom, cfg.image_world_width, cfg.image_world_height,
+                    cfg.alias_factor, 5, 0, fma, approx, offset, count,
+                    want.data_ptr())
+        got = render_native(scene, cfg, offset=offset, count=count,
+                            fma_mask=fma, approx_mask=approx)
+        torch.cuda.synchronize()
+        assert got.shape == (count, 3)
+        assert same_oracle_bits(got, want)
+
+
+def test_oracle_kernel_refuses_what_it_does_not_take(dev):
+    from raytpu_torch.native import render_native
+
+    scene = default_scene(device=dev)
+    cfg = RenderConfig(width=8, height=6)
+    for kw in (dict(cap=0), dict(fma_mask=32), dict(approx_mask=64),
+               dict(offset=40, count=9)):
+        with pytest.raises(ValueError):
+            render_native(scene, cfg, **kw)

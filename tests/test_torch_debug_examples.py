@@ -1,6 +1,6 @@
 """The port's debug render (raytpu_torch.utils.debug.checked_render) and
 its last two examples (fit_golden_scene, animate) against raytpu's on the
-CPU."""
+CPU, and its profiler trace (profile_trace, scoped)."""
 
 import dataclasses
 import importlib.util
@@ -22,6 +22,7 @@ from raytpu_torch.examples import animate, fit_golden_scene
 from raytpu_torch.image import read_ppm, tone_map
 from raytpu_torch.scene import LEAF_NAMES, default_scene, scene_from_leaves
 from raytpu_torch.trace import render_image, render_pixels
+from raytpu_torch.utils import profile_trace, scoped
 from raytpu_torch.utils.debug import NonFiniteError, checked_render
 
 torch.set_num_threads(2)
@@ -53,10 +54,10 @@ def with_nan(scene, group, leaf):
 
 
 def test_checked_render_clean_scene():
-    err, img = checked_render(default_scene(), RenderConfig(**SMALL))
+    err, img = checked_render(default_scene(device="cpu"), RenderConfig(**SMALL))
     assert err.get() is None
     err.throw()
-    assert torch.equal(img, render_image(default_scene(), RenderConfig(**SMALL)))
+    assert torch.equal(img, render_image(default_scene(device="cpu"), RenderConfig(**SMALL)))
     jerr, _ = jdebug.checked_render(jscene.default_scene(),
                                     jconfig.RenderConfig(**SMALL))
     assert jerr.get() is None
@@ -72,7 +73,7 @@ def test_checked_render_clean_scene():
 ])
 def test_checked_render_flags_a_nan_leaf(group, leaf, where):
     """Both packages flag the NaN; the port names where it first appears."""
-    err, _ = checked_render(with_nan(default_scene(), group, leaf),
+    err, _ = checked_render(with_nan(default_scene(device="cpu"), group, leaf),
                             RenderConfig(**SMALL))
     assert (err.level, err.field) == where
     with pytest.raises(NonFiniteError, match=where[1]):
@@ -80,6 +81,21 @@ def test_checked_render_flags_a_nan_leaf(group, leaf, where):
     jerr, _ = jdebug.checked_render(with_nan(jscene.default_scene(), group, leaf),
                                     jconfig.RenderConfig(**SMALL))
     assert jerr.get() is not None
+
+
+def test_profile_trace_names_the_scope(tmp_path):
+    """profile_trace writes a trace into its directory, and a function
+    under scoped(name) appears in it by that name, its result unchanged."""
+    render = scoped("oracle_frame")(render_image)
+    log_dir = tmp_path / "trace"
+    cfg = RenderConfig(width=8, height=6, max_depth=1, alias_factor=1)
+    with profile_trace(str(log_dir)):
+        img = render(default_scene(device="cpu"), cfg)
+    assert render.__name__ == "render_image"
+    assert torch.equal(img, render_image(default_scene(device="cpu"), cfg))
+    traces = sorted(log_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    assert '"oracle_frame"' in traces[0].read_text()
 
 
 def test_fit_golden_scene_matches_raytpu(capsys):
@@ -110,7 +126,7 @@ def test_fit_golden_scene_matches_raytpu(capsys):
     assert agree.mean() >= 0.95, f"{(~agree).sum()} of {agree.size} differ"
     ok = gid[torch.from_numpy(agree)]
 
-    target, _ = fit_golden_scene.golden_target(GOLDEN)
+    target, _ = fit_golden_scene.golden_target(GOLDEN, device="cpu")
     trainable = scene_from_leaves([n == "spheres.pos" for n in LEAF_NAMES])
     _, losses = fit_golden_scene.fit_golden(start, cfg, target, ok, steps=3,
                                             lr=5e-2, trainable=trainable)

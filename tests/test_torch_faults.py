@@ -104,11 +104,11 @@ def test_training_auto_with_a_pixel_subset_is_the_eager_tracer():
 
 
 def test_the_wavefront_scene_check_has_no_upper_bound():
-    big = tscene.random_scene(5000, num_lights=1100, seed=1)
+    big = tscene.random_scene(5000, num_lights=1100, seed=1, device="cpu")
     trace_cuda._check_scene(big, big.device, bounded=False)
     with pytest.raises(ValueError, match="4096"):
         trace_cuda._check_scene(big, big.device)
-    lit = tscene.random_scene(3, num_lights=1100, seed=1)
+    lit = tscene.random_scene(3, num_lights=1100, seed=1, device="cpu")
     with pytest.raises(ValueError, match="lights"):
         trace_cuda._check_scene(lit, lit.device)
     doubled = dataclasses.replace(big, spheres=dataclasses.replace(
@@ -131,7 +131,7 @@ def assert_wavefront_contract(out, ref):
 def test_plain_wavefront_at_depth_9_matches_eager_and_raytpu():
     kw = dict(width=32, height=24, max_depth=9, alias_factor=1)
     cfg = tconfig.RenderConfig(**kw)
-    scene = tscene.default_scene()
+    scene = tscene.default_scene(device="cpu")
     out, info = render_pixels_wavefront(scene, cfg, chunk_rays=1024,
                                         capacity_factor=2, return_info=True)
     assert int(info["dropped"]) == 0
@@ -155,7 +155,7 @@ def test_plain_wavefront_at_depth_9_matches_eager_and_raytpu():
 
 
 def test_plain_wavefront_with_5000_spheres_matches_eager():
-    scene = tscene.random_scene(5000, seed=3)
+    scene = tscene.random_scene(5000, seed=3, device="cpu")
     cfg = tconfig.RenderConfig(width=16, height=8, max_depth=2, alias_factor=1)
     out, info = render_pixels_wavefront(scene, cfg, chunk_rays=1024,
                                         capacity_factor=2, return_info=True)
@@ -169,7 +169,7 @@ def test_pixel_subset_loss_and_gradient_under_auto():
     """A strided gid: "auto" renders and differentiates only those pixels,
     and their gradient is the full frame's with the other pixels' residual
     zeroed."""
-    scene = tscene.default_scene()
+    scene = tscene.default_scene(device="cpu")
     cfg = tconfig.RenderConfig(width=24, height=16, max_depth=2, alias_factor=1)
     rng = np.random.default_rng(2)
     target = torch.from_numpy(rng.uniform(0, 1e-4, (cfg.num_pixels, 3)).astype(np.float32))

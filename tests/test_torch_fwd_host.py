@@ -41,8 +41,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _ARGS = [_P, _I, _P, _I, _P, _P, _LL, _LL, _LL, _LL, _I, _I, _I] + [_F] * 8
 _ENTRIES = {"kernel": "raytpu_trace_fwd_host", "reference": "raytpu_trace_fwd_ref_host"}
 
-SCENES = {"default": tscene.default_scene,
-          "random32": lambda: tscene.random_scene(32, seed=3)}
+SCENES = {"default": lambda: tscene.default_scene(device="cpu"),
+          "random32": lambda: tscene.random_scene(32, seed=3, device="cpu")}
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +106,7 @@ def test_sample_walk_is_bit_identical_to_pixel_forward(host, scene_name, depth, 
 def test_rounds_past_a_block_keep_the_order(host, alias):
     """alias^2 = 121 fills one block with one pixel; 144 takes two rounds of
     128 sample slots, summed in order by the pixel's thread."""
-    scene = tscene.default_scene()
+    scene = tscene.default_scene(device="cpu")
     cfg = RenderConfig(width=8, height=6, max_depth=2, alias_factor=alias)
     sel = dict(offset=9, count=5, stride=7)
     got = host_forward(host, "kernel", scene, cfg, **sel)
@@ -125,7 +125,7 @@ def test_both_walks_hold_the_forward_contract(host, scene_name, alias):
 
 
 def test_empty_and_single_pixel_sets(host):
-    scene = tscene.default_scene()
+    scene = tscene.default_scene(device="cpu")
     cfg = RenderConfig(width=16, height=8, max_depth=2, alias_factor=3)
     assert host_forward(host, "kernel", scene, cfg, count=0).shape == (0, 3)
     one = host_forward(host, "kernel", scene, cfg, offset=127, count=1)

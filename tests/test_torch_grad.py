@@ -43,8 +43,8 @@ torch.set_num_threads(2)
 def scenes(name):
     """(raytpu scene, port scene), bit-identical."""
     if name == "default":
-        return jscene.default_scene(), tscene.default_scene()
-    return jscene.random_scene(8, seed=3), tscene.random_scene(8, seed=3)
+        return jscene.default_scene(), tscene.default_scene(device="cpu")
+    return jscene.random_scene(8, seed=3), tscene.random_scene(8, seed=3, device="cpu")
 
 
 def configs(**kw):
@@ -127,7 +127,7 @@ def test_loss_values_match_raytpu():
     image_loss on a pixel subset) against raytpu's, rtol 1e-4.  The
     single-sphere frame has no pixel whose forward flips between the two
     packages, so loss_and_grad's gradient is held unmasked too."""
-    js, ts = jscene.single_sphere_scene(), tscene.single_sphere_scene()
+    js, ts = jscene.single_sphere_scene(), tscene.single_sphere_scene(device="cpu")
     jcfg, tcfg = configs(width=16, height=12, max_depth=1, alias_factor=1)
     rng = np.random.default_rng(2)
     ref = np.asarray(jtrace.render_image(js, jcfg)).reshape(-1, 3)
@@ -154,7 +154,7 @@ def test_finite_difference_check_rows_on_colour_leaves():
     tests/test_grad.py)."""
     cfg_kw = dict(width=8, height=8, max_depth=1, alias_factor=1)
     jcfg, tcfg = configs(**cfg_kw)
-    js, ts = jscene.single_sphere_scene(), tscene.single_sphere_scene()
+    js, ts = jscene.single_sphere_scene(), tscene.single_sphere_scene(device="cpu")
     target = np.asarray(jtrace.render_image(js, jcfg)).reshape(-1, 3) * 0.7
     rows_j = jgrad.finite_difference_check(
         jax.jit(lambda s: jgrad.image_loss(s, jcfg, jnp.asarray(target))), js,
@@ -218,13 +218,13 @@ def test_checkpoints_cross_between_packages(tmp_path):
     for x, y in zip(leaves_np(back), leaves_np(moved)):
         np.testing.assert_array_equal(x, y)
     with pytest.raises(ValueError):
-        load_checkpoint(a, tscene.default_scene())
+        load_checkpoint(a, tscene.default_scene(device="cpu"))
 
 
 def test_render_pixels_fn_on_the_cpu_is_plain_autograd():
     """On a CPU scene the autograd Function's backward is the plain version,
     and gives exactly the gradient of autograd through the eager tracer."""
-    ts = tscene.random_scene(5, seed=4)
+    ts = tscene.random_scene(5, seed=4, device="cpu")
     cfg = tconfig.RenderConfig(width=12, height=10, max_depth=2, alias_factor=2)
     g = torch.from_numpy(np.random.default_rng(5).uniform(
         0.5, 1.5, (cfg.num_pixels, 3)).astype(np.float32))

@@ -44,7 +44,7 @@ def test_plain_version_matches_pallas_interpret(width, height, depth):
     kw = dict(width=width, height=height, max_depth=depth, alias_factor=1)
     want = render_image_pallas(jscene.default_scene(), jconfig.RenderConfig(**kw),
                                interpret=True)
-    got = render_image_cuda(tscene.default_scene(), tconfig.RenderConfig(**kw))
+    got = render_image_cuda(tscene.default_scene(device="cpu"), tconfig.RenderConfig(**kw))
     assert got.shape == (height, width, 3)
     contract(got, want)
 
@@ -54,14 +54,15 @@ def test_offset_stride_count_interface():
     sel = dict(offset=5, stride=3, count=700)  # runs past P: the tail clamps
     want = render_pixels_pallas(jscene.default_scene(), jconfig.RenderConfig(**kw),
                                 interpret=True, **sel)
-    got = render_pixels_cuda(tscene.default_scene(), tconfig.RenderConfig(**kw), **sel)
+    got = render_pixels_cuda(tscene.default_scene(device="cpu"),
+                             tconfig.RenderConfig(**kw), **sel)
     assert got.shape == (700, 3)
     contract(got, want)
     torch.testing.assert_close(got[-1], got[-2], rtol=0, atol=0)  # both P-1
 
 
 def test_wrapper_on_cpu_is_the_plain_version():
-    scene = tscene.random_scene(8, seed=1)
+    scene = tscene.random_scene(8, seed=1, device="cpu")
     cfg = tconfig.RenderConfig(width=24, height=10, max_depth=2, alias_factor=2)
     before = trace_cuda.TRACE_FWD.launches
     got = render_pixels_cuda(scene, cfg, offset=3, stride=2, count=50)
@@ -74,7 +75,7 @@ def test_wrapper_on_cpu_is_the_plain_version():
 
 def test_scene_tables_match_the_tpu_kernel_layout():
     j = [np.asarray(x) for x in _scene_tables(jscene.random_scene(5, seed=2))]
-    s, l, b = scene_tables(tscene.random_scene(5, seed=2))
+    s, l, b = scene_tables(tscene.random_scene(5, seed=2, device="cpu"))
     np.testing.assert_array_equal(s.numpy(), j[0])
     np.testing.assert_array_equal(l.numpy(), j[1])
     np.testing.assert_array_equal(b.numpy(), j[2].reshape(5))
@@ -82,7 +83,7 @@ def test_scene_tables_match_the_tpu_kernel_layout():
 
 
 def test_pixel_set_is_validated():
-    scene = tscene.default_scene()
+    scene = tscene.default_scene(device="cpu")
     cfg = tconfig.RenderConfig(width=8, height=4, max_depth=0, alias_factor=1)
     for bad in (dict(offset=-1), dict(stride=0), dict(count=-2)):
         with pytest.raises(ValueError):
@@ -90,7 +91,7 @@ def test_pixel_set_is_validated():
 
 
 def test_scene_checks_before_launch():
-    scene = tscene.default_scene()
+    scene = tscene.default_scene(device="cpu")
     trace_cuda._check_scene(scene, scene.device)
     with pytest.raises(TypeError):
         trace_cuda._check_scene(_with(scene, radius=scene.spheres.radius.double()),
@@ -119,16 +120,17 @@ def test_backend_resolution():
     # the measured crossover (the device is only inspected, not used); the
     # cells measured at its two ends stay on their sides.
     deep = tconfig.RenderConfig(width=8, height=8, max_depth=6, alias_factor=1)
-    big = tscene.random_scene(256, seed=3)
+    big = tscene.random_scene(256, seed=3, device="cpu")
     assert resolve_backend("auto", "cuda") == "cuda"
     assert resolve_backend("auto", "cuda", big, deep) == "wavefront"
-    assert resolve_backend("auto", "cuda", tscene.default_scene(), deep) == "cuda"
+    assert resolve_backend("auto", "cuda", tscene.default_scene(device="cpu"), deep) == "cuda"
     for n, depth in ((16, 6), (64, 2), (64, 4), (128, 2)):
         cfg = tconfig.RenderConfig(width=8, height=8, max_depth=depth)
         want = "wavefront" if trender._wf_wins(n, depth) else "cuda"
-        assert resolve_backend("auto", "cuda", tscene.random_scene(n), cfg) == want
+        scene = tscene.random_scene(n, device="cpu")
+        assert resolve_backend("auto", "cuda", scene, cfg) == want
     assert resolve_backend("auto", "cpu", big, deep) == "torch"
-    scene = tscene.single_sphere_scene()
+    scene = tscene.single_sphere_scene(device="cpu")
     cfg = tconfig.RenderConfig(width=8, height=4, max_depth=0, alias_factor=1)
     with pytest.raises(ValueError):
         render_single(scene, cfg, backend="cuda")

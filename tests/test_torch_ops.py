@@ -40,7 +40,7 @@ def t(x):
 
 
 def scenes(n=12, seed=5):
-    return jscene.random_scene(n, seed=seed), tscene.random_scene(n, seed=seed)
+    return jscene.random_scene(n, seed=seed), tscene.random_scene(n, seed=seed, device="cpu")
 
 
 def rays(n=512, seed=0):

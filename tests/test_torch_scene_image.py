@@ -14,6 +14,7 @@ import raytpu.scene_io as jio
 import raytpu_torch.image as timage
 import raytpu_torch.scene as tscene
 import raytpu_torch.scene_io as tio
+from raytpu_torch.parallel import local_device, make_mesh
 from raytpu_torch.scene import scene_from_numpy, scene_to_numpy
 
 torch.set_num_threads(2)
@@ -35,17 +36,61 @@ def assert_same_leaves(got: dict, want: dict):
 
 
 BUILDERS = {
-    "default": lambda m: m.default_scene(),
-    "default_bg1": lambda m: m.default_scene(1.0),
-    "single": lambda m: m.single_sphere_scene(),
-    "random256": lambda m: m.random_scene(256, seed=0),
+    "default": lambda m, **kw: m.default_scene(**kw),
+    "default_bg1": lambda m, **kw: m.default_scene(1.0, **kw),
+    "single": lambda m, **kw: m.single_sphere_scene(**kw),
+    "random256": lambda m, **kw: m.random_scene(256, seed=0, **kw),
 }
 
 
 @pytest.mark.parametrize("name", sorted(BUILDERS))
 def test_builders_match_raytpu_exactly(name):
     build = BUILDERS[name]
-    assert_same_leaves(scene_to_numpy(build(tscene)), jax_leaves(build(jscene)))
+    assert_same_leaves(scene_to_numpy(build(tscene, device="cpu")),
+                       jax_leaves(build(jscene)))
+
+
+# Every way to build a scene (or a mesh) without naming a device.
+UNNAMED = {
+    "default_scene": lambda path: tscene.default_scene(),
+    "single_sphere_scene": lambda path: tscene.single_sphere_scene(),
+    "random_scene": lambda path: tscene.random_scene(4, seed=1),
+    "build_scene": lambda path: tscene.build_scene(
+        [((0.0, 0.0, -5.0), 1.0, tscene.make_material(0.0, (1, 1, 1), (0, 0, 0), 1.0, 1.0))],
+        [((0.0, 5.0, 0.0), (1.0, 1.0, 1.0))]),
+    "scene_from_numpy": lambda path: scene_from_numpy(
+        scene_to_numpy(tscene.default_scene(device="cpu"))),
+    "load_scene": lambda path: tio.load_scene(path),
+    "make_mesh": lambda path: make_mesh(),
+    "local_device": lambda path: local_device(),
+}
+
+
+@pytest.fixture
+def scene_file(tmp_path):
+    path = str(tmp_path / "scene.json")
+    tio.save_scene(tscene.default_scene(device="cpu"), path)
+    return path
+
+
+@pytest.mark.parametrize("name", sorted(UNNAMED))
+def test_no_device_means_the_card(name, scene_file):
+    """Without a device the scene goes to this process's card; without a
+    card that raises rather than build on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device; pass device='cpu'"):
+        UNNAMED[name](scene_file)
+
+
+def test_device_cpu_builds_on_the_cpu(scene_file):
+    for scene in (tscene.default_scene(device="cpu"),
+                  tscene.random_scene(4, seed=1, device="cpu"),
+                  tio.load_scene(scene_file, device="cpu"),
+                  scene_from_numpy(scene_to_numpy(tscene.single_sphere_scene(
+                      device="cpu")), device="cpu")):
+        assert scene.device.type == "cpu"
+    assert make_mesh("cpu").device.type == "cpu"
 
 
 def test_make_material_matches_raytpu():
@@ -58,7 +103,7 @@ def test_make_material_matches_raytpu():
 
 def test_scene_from_numpy_round_trips():
     leaves = jax_leaves(jscene.random_scene(16, seed=4))
-    scene = scene_from_numpy(leaves)
+    scene = scene_from_numpy(leaves, device="cpu")
     assert scene.spheres.count == 16 and scene.lights.count == 4
     assert scene.device.type == "cpu"
     assert_same_leaves(scene_to_numpy(scene), leaves)
@@ -71,9 +116,9 @@ def test_scene_files_load_in_the_other_package(tmp_path, writer):
     want = jax_leaves(jscene.random_scene(8, seed=2, num_lights=3))
     if writer == "raytpu":
         jio.save_scene(jscene.random_scene(8, seed=2, num_lights=3), path)
-        got = scene_to_numpy(tio.load_scene(path))
+        got = scene_to_numpy(tio.load_scene(path, device="cpu"))
     else:
-        tio.save_scene(tscene.random_scene(8, seed=2, num_lights=3), path)
+        tio.save_scene(tscene.random_scene(8, seed=2, num_lights=3, device="cpu"), path)
         got = jax_leaves(jio.load_scene(path))
     assert_same_leaves(got, want)
 
@@ -81,7 +126,7 @@ def test_scene_files_load_in_the_other_package(tmp_path, writer):
 def test_scene_files_are_byte_identical(tmp_path):
     a, b = str(tmp_path / "a.json"), str(tmp_path / "b.json")
     jio.save_scene(jscene.default_scene(0.25), a)
-    tio.save_scene(tscene.default_scene(0.25), b)
+    tio.save_scene(tscene.default_scene(0.25, device="cpu"), b)
     with open(a, "rb") as fa, open(b, "rb") as fb:
         assert fa.read() == fb.read()
 

@@ -57,7 +57,7 @@ def targets():
     out = {}
     for name in GRAD:
         case = CASES[name]
-        port = render_image(default_scene(), RenderConfig(
+        port = render_image(default_scene(device="cpu"), RenderConfig(
             **dict(zip(("width", "height", "max_depth", "alias_factor"),
                        case["cfg"])))).reshape(-1, 3).numpy()
         ref = np.asarray(jtrace.render_image(jscene.default_scene(),
@@ -105,7 +105,7 @@ def test_world_of_one_without_a_process_group():
     assert initialize_distributed(None) is None  # no coordinator: a no-op
     cfg = RenderConfig(width=5, height=3, max_depth=0, alias_factor=1)
     with pytest.raises(ValueError, match="divide"):
-        loss_and_grad_sharded(default_scene(), cfg, torch.zeros(15, 3),
+        loss_and_grad_sharded(default_scene(device="cpu"), cfg, torch.zeros(15, 3),
                               Mesh(0, 2, torch.device("cpu")))
 
 

@@ -50,7 +50,7 @@ CASES = {(0, 1): 15, (1, 1): 18, (3, 1): 39, (1, 3): 74}
 @pytest.mark.parametrize("depth,alias", sorted(CASES))
 def test_render_image_matches_raytpu(depth, alias):
     kw = dict(width=64, height=32, max_depth=depth, alias_factor=alias)
-    img = ttrace.render_image(tscene.default_scene(), tconfig.RenderConfig(**kw))
+    img = ttrace.render_image(tscene.default_scene(device="cpu"), tconfig.RenderConfig(**kw))
     ref = np.asarray(jtrace.render_image(jscene.default_scene(),
                                          jconfig.RenderConfig(**kw)))
     assert img.dtype == torch.float32
@@ -62,7 +62,7 @@ def test_golden_linear_and_ppm():
     19200 pixels differ at rtol 1e-5 (measured, bound 800); every other
     pixel holds rtol 1e-5 and its PPM bytes match the golden exactly."""
     cfg = tconfig.RenderConfig(width=160, height=120, max_depth=4, alias_factor=3)
-    img = ttrace.render_image(tscene.default_scene(), cfg).numpy()
+    img = ttrace.render_image(tscene.default_scene(device="cpu"), cfg).numpy()
     ref = np.load(os.path.join(GOLDEN_DIR, "default_160x120_d4_linear.npy"))
     bad = assert_matches(img, ref, 800)
     ppm = read_ppm(os.path.join(GOLDEN_DIR, "default_160x120_d4.ppm"))
@@ -83,7 +83,7 @@ def test_camera_rays_match_raytpu(alias):
 
 
 def test_chunking_does_not_change_values():
-    scene = tscene.default_scene()
+    scene = tscene.default_scene(device="cpu")
     cfg = tconfig.RenderConfig(width=40, height=10, max_depth=2, alias_factor=2)
     whole = ttrace.render_image(scene, cfg)
     gid = torch.arange(cfg.num_pixels)
@@ -96,7 +96,7 @@ def test_chunking_does_not_change_values():
 def test_trace_rays_sums_levels():
     """trace_rays is the per-ray tree sum: a ray that misses everything
     paints the background at every depth; one into a sphere shades."""
-    scene = tscene.default_scene(bg_opacity=0.0)
+    scene = tscene.default_scene(bg_opacity=0.0, device="cpu")
     scene.bg.matte = torch.tensor([0.1, 0.2, 0.3])
     d = torch.tensor([[0.0, 1.0, 0.0], [-0.55, 0.0, -0.83]])
     d = d / d.norm(dim=-1, keepdim=True)

@@ -57,11 +57,11 @@ torch.set_num_threads(2)
 SOURCE = Path(__file__).resolve().parent.parent / "raytpu_torch" / "csrc" / "wf_level.cu"
 
 SCENES = {
-    "default": (jscene.default_scene, tscene.default_scene),
+    "default": (jscene.default_scene, lambda: tscene.default_scene(device="cpu")),
     "random24": (lambda: jscene.random_scene(24, num_lights=2),
-                 lambda: tscene.random_scene(24, num_lights=2)),
+                 lambda: tscene.random_scene(24, num_lights=2, device="cpu")),
     "random256": (lambda: jscene.random_scene(256, seed=3),
-                  lambda: tscene.random_scene(256, seed=3)),
+                  lambda: tscene.random_scene(256, seed=3, device="cpu")),
 }
 
 
@@ -285,7 +285,7 @@ def test_compaction_is_stable_and_dispatches_on_the_cpu():
     with pytest.raises(TypeError):
         compact(kt, pt.long(), 50, 10)
     with pytest.raises(TypeError):
-        wf_level(tscene.default_scene(), kt.double(), True)
+        wf_level(tscene.default_scene(device="cpu"), kt.double(), True)
 
 
 def assert_wavefront_contract(out, ref, frac_tol=0.005):
@@ -303,10 +303,10 @@ def assert_wavefront_contract(out, ref, frac_tol=0.005):
 def test_wavefront_matches_dense_eager(case):
     scene, cfg = {
         "default_d3_a2_multichunk": (
-            tscene.default_scene(),
+            tscene.default_scene(device="cpu"),
             tconfig.RenderConfig(width=64, height=48, max_depth=3, alias_factor=2)),
         "random24_d4": (
-            tscene.random_scene(24, num_lights=2),
+            tscene.random_scene(24, num_lights=2, device="cpu"),
             tconfig.RenderConfig(width=64, height=48, max_depth=4, alias_factor=1)),
     }[case]
     if case.endswith("multichunk"):
@@ -324,9 +324,10 @@ def overflow_scenes():
     for pkg in (jscene, tscene):
         mat = pkg.make_material(0.3, (0.2, 0.4, 0.6), (0.9, 0.9, 0.9),
                                 opacity=0.0, ior=1.5)
+        on_cpu = {"device": "cpu"} if pkg is tscene else {}
         out.append(pkg.build_scene(
             sphere_specs=[((0.0, 0.0, -10.0), 9.9, mat)],
-            light_specs=[((10.0, 30.0, 10.0), (0.5, 0.5, 0.5))]))
+            light_specs=[((10.0, 30.0, 10.0), (0.5, 0.5, 0.5))], **on_cpu))
     return out
 
 
@@ -348,7 +349,7 @@ def test_drop_count_matches_raytpu_global_compaction(depth):
 
 
 def test_eager_sort_and_pixel_windows():
-    scene = tscene.default_scene()
+    scene = tscene.default_scene(device="cpu")
     cfg = tconfig.RenderConfig(width=64, height=48, max_depth=3, alias_factor=1)
     full = t_render_pixels_wavefront(scene, cfg, chunk_rays=4096)
     lazy = t_render_pixels_wavefront(scene, cfg, chunk_rays=4096, eager_sort=False)
@@ -402,6 +403,6 @@ def test_cli_wavefront(tmp_path, capsys):
     assert tcli.main(small + ["--backend", "wavefront", "--chunk-rays", "1024",
                               "--strict-drops", "-o", out]) == 0
     cfg = tconfig.RenderConfig(width=40, height=24, max_depth=2, alias_factor=2)
-    img = render_single(tscene.default_scene(), cfg, backend="wavefront",
+    img = render_single(tscene.default_scene(device="cpu"), cfg, backend="wavefront",
                         wf_opts=dict(chunk_rays=1024))
     np.testing.assert_array_equal(read_ppm(out), tone_map(img.numpy()))

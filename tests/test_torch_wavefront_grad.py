@@ -355,7 +355,7 @@ GRAD_CASES = {"random24": 89, "black_matte": 89}  # 71, 71
 @pytest.mark.parametrize("case", sorted(GRAD_CASES))
 def test_loss_and_grad_wavefront_matches_raytpu_and_the_dense_port(case):
     js = jscene.random_scene(24, num_lights=2, seed=5)
-    ts = tscene.random_scene(24, num_lights=2, seed=5)
+    ts = tscene.random_scene(24, num_lights=2, seed=5, device="cpu")
     probe = None
     if case == "black_matte":
         probe = half_opaque(js, ts, black=False)
@@ -413,7 +413,7 @@ def test_drops_raise_and_fit_scene_climbs_the_ladder():
 def test_fit_scene_wavefront_backend_converges():
     """tests/test_wavefront.py:397-425 on the port."""
     cfg = tconfig.RenderConfig(width=16, height=8, max_depth=1, alias_factor=1)
-    truth = tscene.default_scene()
+    truth = tscene.default_scene(device="cpu")
     target = render_pixels(truth, cfg, torch.arange(cfg.num_pixels))
     start = dataclasses.replace(truth, spheres=dataclasses.replace(
         truth.spheres, matte=truth.spheres.matte * 0.7))
@@ -438,7 +438,7 @@ def test_training_backend_resolution():
     on the CPU it is the eager tracer, and an explicit backend is kept."""
     from raytpu_torch.render import _wf_wins_train
 
-    ts = tscene.default_scene()
+    ts = tscene.default_scene(device="cpu")
     big = tconfig.RenderConfig(width=640, height=480, max_depth=4)
     small = tconfig.RenderConfig(width=64, height=48, max_depth=4)
     assert _wf_wins_train(64, big) and not _wf_wins_train(64, small)
