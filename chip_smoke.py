@@ -139,6 +139,25 @@ result lines):
      its); default_scene() on the card and render_single on it one K1
      launch; the kernel and the plain version timed at 800x600 with CUDA
      events.
+ 19. raytpu's packed-tile training step and tile culling: three Adam steps
+     of raytpu_torch.grad.loss_and_grad_packed at config 3 from the fit
+     example's perturbed geometry against the true frame (pack_target
+     once), one K1 and one K2 launch a step, each step against
+     loss_and_grad(backend="cuda") on the same scene (loss rtol 1e-6,
+     every leaf within 1e-5 x max |leaf|: K2 sums in another order); the
+     golden frame through render_tiles_cuda_ad (469 tiles, 256 tail lanes
+     equal to pixel P-1 bit for bit; two offset/count blocks whose lane j
+     is pixel min(offset + j, P-1) bit for bit) and the gradient of a plain sum over
+     the tiles against the flat output's, in the same bounds; the packed
+     and flat steps timed in turns and pack_target alone (CUDA events,
+     median of 5 after 1 warm-up), and both steps back to back, in this
+     process and in a fresh one (host work late in this script has read
+     slower than in a fresh process); kernels.culling's tile_bounds and beam_live_mask on config-5 chunk
+     0's camera rays in 1024-ray tiles, card against CPU bit for bit, and
+     conservative against the eager intersection (ray_sphere_t) on the
+     card, with the live share.
+K1's and K2's launches in the kernels line are phase 7's and phase 19's
+summed, each path's count beside them in "launches_by_path".
 The last three lines are nvidia-smi's, the kernels JSON and
 {"ok": true, "device": ...}.
 """
@@ -214,17 +233,17 @@ def grad_contract(kernel, plain, rtol=5e-2):
     return worst, max_abs
 
 
-def ref_table_err(got, want, tol=1e-5):
+def ref_table_err(got, want, tol=1e-5, what="the reference instance"):
     """The largest |got - want| of any gradient leaf over that leaf's max
     |want|; fails above `tol` (atomics sum in another order, so not bit
-    for bit)."""
+    for bit).  `what` names `want` in the failure."""
     from raytpu_torch.scene import LEAF_NAMES, scene_leaves
 
     worst = 0.0
     for name, a, w in zip(LEAF_NAMES, scene_leaves(got), scene_leaves(want)):
         err = float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
         check(np.isfinite(err) and err <= tol,
-              f"{name}: {err} x max |reference| off the reference instance")
+              f"{name}: {err} x max |reference| off {what}")
         worst = max(worst, err)
     return worst
 
@@ -1922,6 +1941,224 @@ def oracle_phase(dev, host_fn):
               f"version {p_ms:.3f} ms (one run), CUDA events")
     return launches, times
 
+# The leaves the fit example fits in its geometry mode.
+FITTED = ("spheres.pos", "spheres.radius", "spheres.matte", "lights.col")
+
+
+def step_times(dev) -> dict:
+    """Phase 19's times at config 3 from the fit example's perturbed
+    geometry against the true frame: loss_and_grad_packed and
+    loss_and_grad(backend="cuda") in turns and pack_target alone (CUDA
+    events, median of 5 after 1 warm-up), and both steps back to back (30
+    calls: the device time where the host keeps ahead; the step is
+    host-bound)."""
+    from raytpu_torch.config import BENCH_CONFIGS
+    from raytpu_torch.examples.fit_scene import perturb
+    from raytpu_torch.grad import loss_and_grad, loss_and_grad_packed, pack_target
+    from raytpu_torch.kernels.trace_cuda import render_pixels_cuda
+    from raytpu_torch.scene import default_scene
+    from raytpu_torch.utils.profiling import Timer
+
+    c3 = BENCH_CONFIGS["config3"]
+    truth = default_scene(device=dev)
+    target = render_pixels_cuda(truth, c3)
+    scene = perturb(truth, geometry=True)
+    packed = pack_target(c3, target)
+    fns = {"packed": lambda: loss_and_grad_packed(scene, c3, packed),
+           "flat": lambda: loss_and_grad(scene, c3, target, backend="cuda"),
+           "pack_target": lambda: pack_target(c3, target)}
+    for fn in fns.values():
+        fn()  # warm-up
+    timer = Timer(dev)
+    for i in range(5):
+        for name in (("packed", "flat") if i % 2 == 0 else ("flat", "packed")):
+            with timer.section(name):
+                fns[name]()
+        with timer.section("pack_target"):
+            fns["pack_target"]()
+    times = {name: median_ms(timer, name) for name in fns}
+    for name in ("packed", "flat"):
+        times[name + "_back_to_back"] = back_to_back_ms(fns[name])
+    return times
+
+
+def packed_phase(dev, smi):
+    """Phase 19: raytpu's packed-tile training step on K1 + K2 and the
+    culling blocks on the card.  (a) Three Adam steps of
+    loss_and_grad_packed at config 3 from the fit example's perturbed
+    geometry against the true frame, one K1 and one K2 launch a step, each
+    step held against loss_and_grad(backend="cuda") on the same scene;
+    (b) the golden frame's tiles (469, the last with 256 tail lanes):
+    the tail equal to pixel P-1, two offset/count blocks whose lane j is
+    pixel min(offset + j, P-1), and the gradient of a plain sum equal to
+    the flat output's; (c) step_times in this process and in a fresh
+    one; (d) tile_bounds and beam_live_mask on
+    config-5 chunk 0's camera rays in 1024-ray tiles, card against CPU bit
+    for bit and conservative against the eager intersection.  Returns the
+    K1 and K2 launches of (a) and the phase's numbers."""
+    import torch
+
+    import raytpu_torch.render as render
+    from raytpu_torch.config import BENCH_CONFIGS
+    from raytpu_torch.examples.fit_scene import perturb
+    from raytpu_torch.grad import (_value_and_grad, loss_and_grad,
+                                   loss_and_grad_packed, pack_target)
+    from raytpu_torch.kernels import culling
+    from raytpu_torch.kernels.trace_cuda import (TILE_PIXELS, TILE_ROWS,
+                                                 TRACE_BWD, TRACE_FWD,
+                                                 render_pixels_cuda,
+                                                 render_pixels_cuda_ad,
+                                                 render_tiles_cuda_ad)
+    from raytpu_torch.kernels.wavefront import chunk_camera_state, wavefront_sizes
+    from raytpu_torch.ops.geometry import ray_sphere_t
+    from raytpu_torch.scene import (LEAF_NAMES, default_scene, random_scene,
+                                    scene_from_leaves, scene_leaves)
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) Config 3: the packed step as a fit takes it, counted alone.
+    c3 = BENCH_CONFIGS["config3"]
+    check(c3.num_pixels % TILE_PIXELS == 0, "config 3 is not whole tiles")
+    truth = default_scene(device=dev)
+    target = render_pixels_cuda(truth, c3)
+    params = [t.detach().clone().requires_grad_(True)
+              for t in scene_leaves(perturb(truth, geometry=True))]
+    opt = torch.optim.Adam(params, lr=1e-2, eps=1e-16)  # the fit example's
+    packed = pack_target(c3, target)
+    steps = []
+    TRACE_FWD.launches = TRACE_BWD.launches = 0
+    for _ in range(3):
+        scene = scene_from_leaves([p.detach().clone() for p in params])
+        loss, grads = loss_and_grad_packed(scene, c3, packed)
+        steps.append((scene, loss, grads))
+        for p, g, name in zip(params, scene_leaves(grads), LEAF_NAMES):
+            p.grad = g if name in FITTED else torch.zeros_like(g)
+        opt.step()
+    torch.cuda.synchronize()
+    launches = (TRACE_FWD.launches, TRACE_BWD.launches)
+    check(launches == (3, 3), f"3 packed steps launched K1 and K2 {launches} times")
+    worst_loss = worst_leaf = 0.0
+    for i, (scene, loss, grads) in enumerate(steps):
+        flat_loss, flat_grads = loss_and_grad(scene, c3, target, backend="cuda")
+        rel = abs(float(loss) / float(flat_loss) - 1.0)
+        check(np.isfinite(float(loss)) and rel <= 1e-6,
+              f"packed step {i}: loss {float(loss)!r} against the flat "
+              f"{float(flat_loss)!r} (rtol 1e-6)")
+        err = ref_table_err(grads, flat_grads, what=f"the flat step {i}")
+        worst_loss, worst_leaf = max(worst_loss, rel), max(worst_leaf, err)
+    out.update(launches={"trace_fwd": launches[0], "trace_bwd": launches[1]},
+               config3_losses=[float(s[1]) for s in steps],
+               loss_rel_err=worst_loss, leaf_err=worst_leaf)
+    print(f"phase 19: config3 packed step x3 (Adam, the fit example's leaves): "
+          f"K1 launches {launches[0]}, K2 launches {launches[1]}; losses "
+          + " -> ".join(f"{v:.6e}" for v in out["config3_losses"])
+          + f"; against loss_and_grad(backend='cuda') on each step's scene: "
+          f"loss rel err {worst_loss:.3e} (<= 1e-6), worst leaf "
+          f"{worst_leaf:.3e} x max |leaf| (<= 1e-5)")
+
+    # (b) The golden frame: 480,000 pixels in 469 tiles, 256 tail lanes.
+    golden = BENCH_CONFIGS["golden"]
+    p = golden.num_pixels
+    tiles = -(-p // TILE_PIXELS)
+    ds = default_scene(device=dev)
+    with torch.no_grad():
+        tiled = render_tiles_cuda_ad(ds, golden)
+        flat = render_pixels_cuda(ds, golden)
+    torch.cuda.synchronize()
+    check(tuple(tiled.shape) == (3, tiles * TILE_ROWS, 128),
+          f"golden tiles shape {tuple(tiled.shape)}")
+    lanes = tiled.reshape(3, -1).T.contiguous()
+    tail = tiles * TILE_PIXELS - p
+    check(same_bits(lanes[:p], flat.contiguous()),
+          "the golden tiles' real lanes differ from render_pixels_cuda")
+    check(same_bits(lanes[p:], lanes[p - 1:p].expand(tail, 3).contiguous()),
+          "the golden tiles' tail lanes are not pixel P-1")
+    # Offset/count: lane j is pixel min(offset + j, P-1), as in the TPU
+    # kernel; the second block runs past the frame's end.
+    shards = ((1000, 150_000), (p - 1000, 500))
+    for offset, count in shards:
+        with torch.no_grad():
+            got = render_tiles_cuda_ad(ds, golden, offset, count)
+            want = render_pixels_cuda(ds, golden, offset, got[0].numel())
+        check(same_bits(got.reshape(3, -1).T.contiguous(), want.contiguous()),
+              f"tiles of pixels {offset}+{count}: a lane is not pixel "
+              f"min(offset + j, P-1)")
+    _, g_tiled = _value_and_grad(
+        lambda s: torch.sum(render_tiles_cuda_ad(s, golden)), ds)
+    _, g_flat = _value_and_grad(
+        lambda s: torch.sum(render_pixels_cuda_ad(s, golden)), ds)
+    out["golden_tail_leaf_err"] = ref_table_err(
+        g_tiled, g_flat, what="the golden frame's flat sum-gradient")
+    print(f"phase 19: golden {golden.width}x{golden.height} d{golden.max_depth} "
+          f"a{golden.alias_factor} tiled: {tiles} tiles, {tail} tail "
+          f"lanes equal to pixel P-1 bit for bit, real lanes bit-identical to "
+          f"render_pixels_cuda; offset/count blocks {shards}: lane j bit-identical "
+          f"to pixel min(offset + j, P-1); gradient of a plain sum over the tiles vs the "
+          f"flat output: worst leaf {out['golden_tail_leaf_err']:.3e} x max "
+          f"|leaf| (<= 1e-5)")
+
+    # (c) Times, in this process and in a fresh one: host work late in
+    # this script has read slower than in a fresh process (PERF.md §7).
+    here = step_times(dev)
+    res = subprocess.run(
+        [sys.executable, "-c", "import json, torch, chip_smoke; print(json.dumps("
+         "chip_smoke.step_times(torch.device('cuda:0'))))"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=300)
+    check(res.returncode == 0, f"the fresh process's step times: {res.stderr}")
+    fresh = json.loads(res.stdout.strip().splitlines()[-1])
+    out["ms"] = dict(this_process=here, fresh_process=fresh)
+    for label, t in (("this process", here), ("a fresh process", fresh)):
+        print(f"phase 19: config3 step in {label}, median of 5 after 1 warm-up, "
+              f"in turns: packed {t['packed']:.4f} ms, flat {t['flat']:.4f} ms; "
+              f"pack_target alone {t['pack_target']:.4f} ms; back to back (30 "
+              f"calls) packed {t['packed_back_to_back']:.4f} ms, flat "
+              f"{t['flat_back_to_back']:.4f} ms | nvidia-smi: {smi}")
+
+    # (d) Culling blocks on config 5's chunk 0 camera rays, 1024-ray tiles.
+    c5 = BENCH_CONFIGS["config5"]
+    scene5 = random_scene(256, seed=3, device=dev)
+    pos, rad = scene5.spheres.pos, scene5.spheres.radius
+    chunk, _, _, n_chunks = wavefront_sizes(c5, render.WF_AUTO_CHUNK,
+                                            render.WF_AUTO_LADDER[0])
+    tile = 1024
+    check(chunk % tile == 0, f"chunk {chunk} is not whole {tile}-ray tiles")
+    state, _ = chunk_camera_state(c5, chunk, n_chunks, 0, c5.num_pixels, device=dev)
+    fields = [state[i] for i in range(6)]  # origin xyz, direction xyz
+    bounds = culling.tile_bounds(fields, tile)
+    live = culling.beam_live_mask(bounds, pos, rad)
+    cpu_bounds = culling.tile_bounds([f.cpu() for f in fields], tile)
+    cpu_live = culling.beam_live_mask(cpu_bounds, pos.cpu(), rad.cpu())
+    torch.cuda.synchronize()
+    for (lo, hi), (clo, chi) in zip(bounds, cpu_bounds):
+        check(same_bits(lo.cpu(), clo) and same_bits(hi.cpu(), chi),
+              "tile_bounds on the card differs from the CPU")
+    check(torch.equal(live.cpu(), cpu_live), "beam_live_mask on the card "
+          "differs from the CPU")
+    hit = torch.zeros_like(live)
+    rays = 32 * tile
+    for r0 in range(0, chunk, rays):
+        o, d = state[0:3, r0:r0 + rays].T, state[3:6, r0:r0 + rays].T
+        _, found = ray_sphere_t(o, d, pos, rad)
+        hit[r0 // tile:(r0 + rays) // tile] = found.reshape(
+            -1, tile, scene5.spheres.count).any(dim=1)
+    missed = int((hit & ~live).sum())
+    check(missed == 0, f"beam_live_mask killed {missed} (tile, sphere) pairs a "
+          f"ray of the tile hits")
+    n_tiles = live.shape[0]
+    out["culling"] = dict(tiles=n_tiles, live_share=float(live.float().mean()),
+                          live_per_tile=float(live.sum(dim=1).float().mean()),
+                          hit_per_tile=float(hit.sum(dim=1).float().mean()))
+    print(f"phase 19: culling on config5 chunk 0 ({chunk} camera rays, "
+          f"{n_tiles} tiles of {tile}): tile_bounds and beam_live_mask "
+          f"bit-identical card vs CPU; conservative (every hit pair live); "
+          f"live share {out['culling']['live_share']:.4f}, "
+          f"{out['culling']['live_per_tile']:.2f} of 256 spheres live a tile "
+          f"on average, {out['culling']['hit_per_tile']:.2f} hit")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 19: done in {out['seconds']:.1f} s")
+    return launches, out
+
 
 def main() -> int:
     import torch
@@ -2288,6 +2525,7 @@ def main() -> int:
     fault_phase(dev)
     sharded = sharded_phase(dev, frame11, golden_ppm)
     oracle_launches, oracle_times = oracle_phase(dev, oracle_host_fn)
+    (packed_fwd, packed_bwd), packed = packed_phase(dev, smi)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
@@ -2295,14 +2533,18 @@ def main() -> int:
         {"name": "trace_fwd", "route": "cuda",
          "source": os.path.relpath(str(TRACE_FWD.source), ROOT),
          "replaces": "raytpu/kernels/trace_pallas.py:798",
-         "launches": fwd_launches, "max_abs_err": s_fwd["max_abs_err"],
+         "launches": fwd_launches + packed_fwd,
+         "launches_by_path": {"fit": fwd_launches, "packed": packed_fwd},
+         "max_abs_err": s_fwd["max_abs_err"],
          "ms": times["config3"][0], "plain_ms": times["config3"][1],
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
          **k1, "library_ms": None},
         {"name": "trace_bwd", "route": "cuda",
          "source": os.path.relpath(str(TRACE_BWD.source), ROOT),
          "replaces": "raytpu/kernels/trace_pallas.py:1248",
-         "launches": bwd_launches, "max_abs_err": bwd_abs,
+         "launches": bwd_launches + packed_bwd,
+         "launches_by_path": {"fit": bwd_launches, "packed": packed_bwd},
+         "max_abs_err": bwd_abs,
          "max_rel_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_s * 1e3,
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
          "ref_ms": k2_ref_ms, "ref_turn_ms": k2_turn_ms,
@@ -2327,6 +2569,7 @@ def main() -> int:
           + json.dumps({"kernel_ms": {k: v[0] for k, v in oracle_times.items()},
                         "plain_ms": {k: v[1] for k, v in oracle_times.items()},
                         "launches": oracle_launches}))
+    print("phase 19: packed-tile step and culling " + json.dumps(packed))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -10,6 +10,7 @@ then runs where the scene lies.
 
 Public surface:
     raytpu_torch.config     RenderConfig, BENCH_CONFIGS
+    raytpu_torch.device     the default device: this process's card
     raytpu_torch.scene      Scene / Spheres / Lights / Medium dataclasses, builders
     raytpu_torch.scene_io   JSON scene files (raytpu's schema)
     raytpu_torch.image      tone mapping + PPM I/O (golden-image contract)
@@ -17,12 +18,15 @@ Public surface:
     raytpu_torch.kernels    the CUDA kernels (dense forward and backward, the
                             wavefront's level and compaction and their
                             backwards), their plain versions, the autograd
-                            Functions pairing them, and the wavefront tracer
+                            Functions pairing them, the wavefront tracer,
+                            raytpu's tiled pixel layout and its tile
+                            culling (kernels.culling)
     raytpu_torch.render     backend choice, one-device and sharded render
                             with the wavefront's capacity ladder, CUDA-event
                             timing
-    raytpu_torch.grad       losses, scene gradient (one device or sharded),
-                            fit, finite differences
+    raytpu_torch.grad       losses, scene gradient (one device or sharded,
+                            or in the tiled layout: pack_target,
+                            loss_and_grad_packed), fit, finite differences
     raytpu_torch.parallel   the pixel mesh and its collectives on
                             torch.distributed
     raytpu_torch.oracle     the strict-semantics oracle (the reference's
@@ -40,7 +44,8 @@ Public surface:
 from raytpu_torch.config import BENCH_CONFIGS, RenderConfig
 from raytpu_torch.grad import (exposure_image_loss, finite_difference_check,
                                fit_scene, image_loss, loss_and_grad,
-                               loss_and_grad_sharded, loss_and_grad_wavefront)
+                               loss_and_grad_packed, loss_and_grad_sharded,
+                               loss_and_grad_wavefront, pack_target)
 from raytpu_torch.image import max_colour_value, read_ppm, tone_map, write_ppm
 from raytpu_torch.kernels.wavefront import (render_image_wavefront,
                                             render_pixels_wavefront)
@@ -73,7 +78,8 @@ __all__ = [
     "render_pixels_wavefront", "render_image_wavefront",
     "tone_map", "write_ppm", "read_ppm", "max_colour_value",
     "image_loss", "exposure_image_loss", "loss_and_grad",
-    "loss_and_grad_wavefront", "loss_and_grad_sharded", "fit_scene",
+    "loss_and_grad_packed", "pack_target", "loss_and_grad_wavefront",
+    "loss_and_grad_sharded", "fit_scene",
     "finite_difference_check", "save_checkpoint", "load_checkpoint",
     "checked_render",
     "__version__",

@@ -29,12 +29,12 @@ import torch
 
 def golden_target(path: str, device=None):
     """Decode a golden PPM -> (P, 3) float target in [0, 1] on `device`
-    (None: this process's card, parallel.mesh.local_device), and its
+    (None: this process's card, device.local_device), and its
     (height, width)."""
     from raytpu_torch.image import read_ppm
-    from raytpu_torch.parallel.mesh import local_device
+    from raytpu_torch.device import resolve_device
 
-    device = local_device() if device is None else device
+    device = resolve_device(device)
     g = read_ppm(path).astype(np.float32) / 255.0
     return torch.tensor(g.reshape(-1, 3), device=device), g.shape[:2]
 

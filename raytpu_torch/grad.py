@@ -30,6 +30,10 @@ container, shadow and significance selections are constants of the
 derivative, and masked square roots and divisions are guarded so that no
 gradient is NaN.
 
+pack_target and loss_and_grad_packed are raytpu's packed-tile training step:
+a target packed in raytpu's tiled layout, and loss_and_grad on its unpacked
+view.
+
 loss_and_grad_sharded and fit_scene(mesh=) train over the ranks of a
 process group (raytpu_torch.parallel): the scene replicated, each rank the
 gradient of its pixel set's share of the loss, and one all-reduce of the
@@ -43,8 +47,10 @@ import torch
 
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels.trace_cuda import (SMEM_BYTES, _bwd_shared_bytes,
-                                             dense_takes, render_pixels_cuda_ad,
-                                             render_pixels_torch)
+                                             dense_takes, pack_pixel_tiles,
+                                             render_pixels_cuda_ad,
+                                             render_pixels_torch,
+                                             unpack_pixel_tiles)
 from raytpu_torch.kernels.wavefront import render_pixels_wavefront
 from raytpu_torch.parallel.mesh import Mesh, all_reduce_sum, make_mesh, pixel_set
 from raytpu_torch.render import (WF_AUTO_CHUNK_TRAIN, _report_drops,
@@ -158,6 +164,30 @@ def loss_and_grad(scene, cfg: RenderConfig, target_flat, backend: str = "auto"):
     one, whatever process group is initialised."""
     return loss_and_grad_sharded(scene, cfg, target_flat,
                                  Mesh(0, 1, scene.device), backend)
+
+
+def pack_target(cfg: RenderConfig, target_flat):
+    """A (P, 3) target in raytpu's tiled layout (3, rows, LANES), the tail
+    zero: pack it once per fit, outside the step (the counterpart of
+    raytpu.grad.pack_target)."""
+    return pack_pixel_tiles(target_flat, cfg.num_pixels)
+
+
+def loss_and_grad_packed(scene, cfg: RenderConfig, target_packed):
+    """The MSE against a pack_target target and its scene gradient:
+    (loss, gradient Scene), as loss_and_grad returns them (the counterpart
+    of raytpu.grad.loss_and_grad_pallas_packed; the port says cuda where
+    raytpu says pallas).  raytpu's masked sum over the tiles, divided by
+    3P, is the flat MSE over the target's real lanes, so this is
+    loss_and_grad on the unpacked view: the tiled layout answers the TPU's
+    lanes and buys nothing here.  On a CUDA scene the kernel pair (one
+    forward and one backward launch; a scene they do not take raises, as
+    raytpu's step has no other path); on the CPU autograd of the eager
+    tracer."""
+    backend = "cuda" if scene.device.type == "cuda" else "torch"
+    return loss_and_grad(scene, cfg, unpack_pixel_tiles(target_packed,
+                                                        cfg.num_pixels),
+                         backend)
 
 
 def loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,

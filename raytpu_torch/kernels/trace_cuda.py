@@ -8,6 +8,13 @@ _make_bwd_kernel.  The interface is the TPU kernels': `offset`, `count` and
 to P-1, the forward returns (count, 3) linear colour and the backward takes
 its (count, 3) cotangent.
 
+raytpu's training step also runs in the TPU kernels' own tiled layout, (3,
+tiles*TILE_ROWS, LANES) with the tail lanes padded (pack_pixel_tiles,
+render_tiles_pallas_ad).  The port keeps that API (pack_pixel_tiles,
+unpack_pixel_tiles, tile_mask, render_tiles_cuda_ad) on the same kernels:
+the layout answers the TPU's 128 lanes, so K1 and K2 keep their (count, 3)
+interface and the tiles are a pack and an unpack around them.
+
 Each kernel is built with nvcc for sm_90a at first use into
 raytpu_torch/build/, keyed by a hash of its sources and flags, and loaded
 with ctypes.  A scene on the CPU goes to the plain version; a scene on a
@@ -27,6 +34,7 @@ from pathlib import Path
 import torch
 
 from raytpu_torch.config import RenderConfig
+from raytpu_torch.device import resolve_device
 from raytpu_torch.scene import (LEAF_NAMES, Lights, Medium, Scene, Spheres,
                                 scene_from_leaves, scene_leaves)
 from raytpu_torch.trace import camera_constants, render_pixels
@@ -48,6 +56,12 @@ MAX_SPHERES = 4096    # with MAX_LIGHTS, keeps the forward's staged tables
 MAX_LIGHTS = 1024     # within the 227 KB of shared memory a block may use
 SMEM_BYTES = 232_448  # shared memory one block may use on sm_90
 SCENE_ROWS, LIGHT_ROWS, BG_ROWS = 12, 6, 5
+
+# raytpu's tiled pixel layout (trace_pallas.py:41-43): a tile is TILE_ROWS
+# rows of LANES pixels.
+LANES = 128
+TILE_ROWS = 8
+TILE_PIXELS = TILE_ROWS * LANES
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
@@ -453,3 +467,58 @@ def render_pixels_cuda_ad(scene, cfg: RenderConfig, offset: int = 0,
     """render_pixels_cuda that autograd differentiates with the backward
     kernel: (count, 3)."""
     return RenderPixelsFn.apply(cfg, offset, count, stride, *scene_leaves(scene))
+
+
+def pack_pixel_tiles(flat, count: int | None = None):
+    """(count, 3) pixel data -> raytpu's tiled layout (3, tiles*TILE_ROWS,
+    LANES), the tail zero-padded, on flat's device (the counterpart of
+    raytpu.kernels.trace_pallas.pack_pixel_tiles)."""
+    if count is None:
+        count = flat.shape[0]
+    tiles = -(-count // TILE_PIXELS)
+    pad = tiles * TILE_PIXELS - count
+    # One copy: the channels of flat.T, each padded to whole tiles.
+    padded = torch.nn.functional.pad(flat.T, (0, pad))
+    return padded.reshape(3, tiles * TILE_ROWS, LANES)
+
+
+def unpack_pixel_tiles(tbl, count: int):
+    """Inverse of pack_pixel_tiles: (3, R, LANES) -> (count, 3)."""
+    return tbl.reshape(3, -1).T[:count]
+
+
+def tile_mask(count: int, device=None):
+    """(rows, LANES) float32 mask of a `count`-pixel block's tiles: 1 where
+    the lane holds a pixel, 0 on the tail pad (whose lanes repeat the last
+    pixel and must not count in a loss).  `device` defaults to this
+    process's card (device.local_device), which raises without one."""
+    device = resolve_device(device)
+    tiles = -(-count // TILE_PIXELS)
+    lane = torch.arange(tiles * TILE_PIXELS, device=device)
+    return (lane < count).to(torch.float32).reshape(tiles * TILE_ROWS, LANES)
+
+
+def render_tiles_cuda_ad(scene, cfg: RenderConfig, offset: int = 0,
+                         count: int | None = None):
+    """render_pixels_cuda_ad of the pixels offset .. offset+count-1 in
+    raytpu's tiled layout: (3, tiles*TILE_ROWS, LANES), and autograd takes
+    its cotangent in that shape (the counterpart of
+    raytpu.kernels.trace_pallas.render_tiles_pallas_ad).
+
+    Lane j holds pixel min(offset + j, P-1), as in the TPU kernel: the
+    tail lanes past `count` hold the pixels that follow, up to the frame's
+    last, and then repeat it.  One forward kernel launch renders every
+    distinct pixel of the tiles; the tail is detached, so its cotangent is
+    dropped: a plain sum over the tiled output has the flat output's
+    gradient, and the one backward kernel launch takes a zero cotangent on
+    the tail's pixels.  On a CPU scene the plain versions run; a CUDA scene
+    the dense kernels do not take (dense_takes, or the backward's shared
+    memory) raises."""
+    count = cfg.num_pixels if count is None else int(count)
+    lanes = -(-count // TILE_PIXELS) * TILE_PIXELS
+    distinct = min(lanes, cfg.num_pixels - offset)
+    # (3, distinct) as the kernel writes it; one copy appends the repeats.
+    channels = render_pixels_cuda_ad(scene, cfg, offset, distinct).T
+    parts = [channels[:, :count], channels[:, count:].detach(),
+             channels[:, -1:].detach().expand(3, lanes - distinct)]
+    return torch.cat(parts, dim=1).reshape(3, -1, LANES)

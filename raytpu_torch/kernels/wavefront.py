@@ -605,8 +605,8 @@ def wavefront_sizes(cfg: RenderConfig, chunk_rays: int, capacity_factor,
 
 
 def chunk_camera_state(cfg: RenderConfig, chunk: int, n_chunks: int, c: int,
-                       npix: int, offset: int = 0, shard_stride: int = 1,
-                       device="cpu"):
+                       npix: int, offset: int = 0, shard_stride: int = 1, *,
+                       device):
     """Chunk c's camera rays, pixel-major and strided: ray j is sample
     j % spp of slot k = j // spp, the window pixel c + k * n_chunks (frame
     pixel offset + that * shard_stride, clamped to P-1).  Returns the
@@ -665,7 +665,7 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
     dropped = torch.zeros((), dtype=torch.int64, device=device)
     for c in range(n_chunks):
         state, pid = chunk_camera_state(cfg, chunk, n_chunks, c, npix, offset,
-                                        shard_stride, device)
+                                        shard_stride, device=device)
         for level in range(cfg.max_depth + 1):
             spawn = level < cfg.max_depth
             if ad:

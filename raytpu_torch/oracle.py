@@ -40,7 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raytpu_torch.parallel.mesh import local_device
+from raytpu_torch.device import resolve_device
 
 
 def _f32(x) -> float:
@@ -364,8 +364,8 @@ def trace_oracle(scene, origins, dirs, cap=CPU_STACK_CAP, bg_opacity=None,
 def camera_dirs_oracle(cfg, sample_i, sample_j, device=None):
     """Float32-exact camera directions (raytrace_kernel.cl:908-952,
     main.cpp:404-447): one (P, 3) tensor for supersample (i, j), on
-    `device` (None: this process's card, parallel.mesh.local_device)."""
-    device = local_device() if device is None else torch.device(device)
+    `device` (None: this process's card, device.local_device)."""
+    device = resolve_device(device)
     F = np.float32
     w, h = cfg.width, cfg.height
     xstep = F(cfg.image_world_width) / F(w)

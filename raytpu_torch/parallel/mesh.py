@@ -25,13 +25,14 @@ refuses a duplicate GPU).
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from raytpu_torch.config import RenderConfig
+# local_device is re-exported: raytpu_torch.parallel names it.
+from raytpu_torch.device import local_device, resolve_device  # noqa: F401
 
 PIXEL_AXIS = "px"
 
@@ -49,21 +50,11 @@ class Mesh:
     backend: str | None = None
 
 
-def local_device() -> torch.device:
-    """The card of this process: LOCAL_RANK (torchrun's) modulo the cards
-    present.  Raises RuntimeError without a card: the CPU is never taken
-    in its place, and a caller that wants it passes device="cpu"."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass device='cpu'")
-    local = int(os.environ.get("LOCAL_RANK", 0))
-    return torch.device("cuda", local % torch.cuda.device_count())
-
-
 def make_mesh(device=None) -> Mesh:
     """The mesh over the world of the initialised process group, or a world
     of one when none is initialised.  `device` is where this rank renders
     (default: local_device(), which raises without a card)."""
-    device = local_device() if device is None else torch.device(device)
+    device = resolve_device(device)
     if not dist.is_initialized():
         return Mesh(0, 1, device)
     group = dist.group.WORLD

@@ -5,7 +5,7 @@ tensor; materials are folded into `Spheres` (one material per sphere, as in
 the reference).  The builders draw every number with numpy exactly as
 raytpu.scene does, so both packages build bit-identical scenes.  Every
 builder puts its scene on this process's card unless given a device, and
-raises without one (parallel.mesh.local_device): a CPU scene is asked for
+raises without one (device.local_device): a CPU scene is asked for
 with device="cpu".
 """
 
@@ -16,12 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from raytpu_torch.parallel.mesh import local_device
-
-
-def _device(device) -> torch.device:
-    """`device`, or the card of this process (local_device) when None."""
-    return local_device() if device is None else torch.device(device)
+from raytpu_torch.device import resolve_device
 
 
 def _to(obj, device):
@@ -109,7 +104,7 @@ def make_material(gloss_factor, matte_col, gloss_col, opacity, ior):
 def build_scene(sphere_specs, light_specs, bg_matte=(0.0, 0.0, 0.0),
                 bg_ior=1.0, bg_opacity=0.0, device=None) -> Scene:
     """Assemble a Scene on `device` from per-object specs.  `device` None
-    is this process's card (parallel.mesh.local_device), which raises
+    is this process's card (device.local_device), which raises
     without one: a CPU scene is asked for with device="cpu".
 
     sphere_specs: iterable of (pos(3,), radius, material-dict from make_material)
@@ -125,7 +120,7 @@ def build_scene(sphere_specs, light_specs, bg_matte=(0.0, 0.0, 0.0),
         iors.append(mat["ior"])
     lpos = [np.asarray(p, np.float32) for p, _ in light_specs]
     lcol = [np.asarray(c, np.float32) for _, c in light_specs]
-    device = _device(device)
+    device = resolve_device(device)
 
     def f32(x):
         return torch.tensor(np.asarray(x, np.float32), device=device)
@@ -237,7 +232,7 @@ def scene_from_numpy(d: dict, device=None) -> Scene:
     from a dict of numpy leaves keyed "spheres.pos", ..., "bg.opacity" (for
     example raytpu's Scene pytree leaves converted with np.asarray) — the
     port's scene conversion."""
-    device = _device(device)
+    device = resolve_device(device)
     return scene_from_leaves(
         torch.tensor(np.asarray(d[key], np.float32), device=device)
         for key in LEAF_NAMES)

@@ -25,6 +25,7 @@ import torch
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.ops.geometry import closest_hit, normalize
 from raytpu_torch.ops.shading import is_significant, matte_light_sum, reflect, refract
+from raytpu_torch.device import resolve_device
 
 
 class CameraConstants(NamedTuple):
@@ -57,11 +58,14 @@ def camera_constants(cfg: RenderConfig) -> CameraConstants:
 
 
 def camera_rays(cfg: RenderConfig, sample_i: int, sample_j: int, gid=None,
-                device="cpu"):
+                device=None):
     """Unit directions (len(gid), 3) of supersample (i, j) for the pixels
-    `gid` (default: all H*W, on `device`; otherwise gid's device)."""
+    `gid`, on gid's device; without `gid`, all H*W pixels on `device`,
+    which defaults to this process's card (device.local_device) and
+    raises without one: pass device="cpu" for the CPU."""
     if gid is None:
-        gid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=device)
+        gid = torch.arange(cfg.num_pixels, dtype=torch.int64,
+                           device=resolve_device(device))
     c = camera_constants(cfg)
     ix = (gid % cfg.width).to(torch.float32)
     iy = (gid // cfg.width).to(torch.float32)

@@ -172,7 +172,7 @@ def _seeded_states(scene, rng, count):
     inside spheres with their media), a seeded sample of `count`, with
     seeded intensities."""
     cfg = tconfig.RenderConfig(width=24, height=18, max_depth=1, alias_factor=1)
-    d = camera_rays(cfg, 0, 0)
+    d = camera_rays(cfg, 0, 0, device="cpu")
     b = d.shape[0]
     bg = scene.bg
     state0 = (torch.zeros(b, 3), d, torch.ones(b, 3),

@@ -26,7 +26,9 @@ trains through the wavefront, held to the plain versions; a pixel subset
 trains through the eager tracer.  The oracle kernel is held bit for bit,
 NaN masks equal, to its plain version (raytpu_torch.oracle) and to its g++
 host build under the golden-residual experiments' masks; the scene
-builders put a scene built without a device on the card.
+builders put a scene built without a device on the card.  raytpu's
+packed-tile step launches the kernel pair once each and matches the flat
+step, and the culling masks on the card equal the CPU's.
 """
 
 import dataclasses
@@ -175,6 +177,44 @@ def test_backward_raises_on_what_it_does_not_take(dev):
         scene.spheres, radius=scene.spheres.radius.double()))
     with pytest.raises(TypeError):
         grad_pixels_cuda(doubled, cfg, g)
+
+
+def test_packed_step_runs_the_kernel_pair(dev):
+    """loss_and_grad_packed on the card: one K1 and one K2 launch, the
+    flat step's loss (rtol 1e-6) and gradient (1e-5 x max |leaf|: K2 sums
+    with atomics), and a raise on a scene the kernels do not take."""
+    from raytpu_torch.grad import loss_and_grad_packed, pack_target
+
+    scene = default_scene(device=dev)
+    cfg = RenderConfig(width=40, height=30, max_depth=2, alias_factor=2)
+    target = render_pixels_cuda(scene, cfg) * 1.15
+    packed = pack_target(cfg, target)
+    fwd, bwd = trace_cuda.TRACE_FWD.launches, trace_cuda.TRACE_BWD.launches
+    loss, grads = loss_and_grad_packed(scene, cfg, packed)
+    assert trace_cuda.TRACE_FWD.launches == fwd + 1
+    assert trace_cuda.TRACE_BWD.launches == bwd + 1
+    flat_loss, flat_grads = loss_and_grad(scene, cfg, target, backend="cuda")
+    np.testing.assert_allclose(float(loss), float(flat_loss), rtol=1e-6)
+    for a, w in zip(scene_leaves(grads), scene_leaves(flat_grads)):
+        assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    with pytest.raises(ValueError):
+        loss_and_grad_packed(scene, RenderConfig(
+            width=8, height=8, max_depth=trace_cuda.MAX_DEPTH + 1), packed)
+
+
+def test_culling_masks_on_the_card_equal_the_cpu(dev):
+    from raytpu_torch.kernels import culling
+
+    scene = random_scene(64, seed=3, device=dev)
+    cfg = RenderConfig(width=128, height=64, max_depth=1, alias_factor=2)
+    chunk, _, _, n = wavefront.wavefront_sizes(cfg, 1 << 14, 1)
+    state, _ = wavefront.chunk_camera_state(cfg, chunk, n, 0, cfg.num_pixels,
+                                            device=dev)
+    bounds = culling.tile_bounds(list(state[:6]), 256)
+    live = culling.beam_live_mask(bounds, scene.spheres.pos, scene.spheres.radius)
+    cpu = culling.beam_live_mask(culling.tile_bounds(list(state[:6].cpu()), 256),
+                                 scene.spheres.pos.cpu(), scene.spheres.radius.cpu())
+    assert torch.equal(live.cpu(), cpu)
 
 
 def _level_states(scene, dev):

@@ -1,0 +1,194 @@
+"""Every public name of raytpu has a counterpart in raytpu_torch.
+
+The port does everything raytpu does; this table is the record of where.
+It walks raytpu's modules (pkgutil.walk_packages) and collects every
+public top-level function and class that a module defines itself (jitted
+and custom_vjp functions included, not the names a module imports).  Each
+must have a row naming a raytpu_torch attribute, and each row must
+resolve.  Where the counterpart has another form, the row names the
+argument that carries raytpu's function, and the counterpart must take
+it; the comment says how it maps.  The port says cuda where raytpu says
+pallas.
+"""
+
+import importlib
+import inspect
+import pkgutil
+
+import raytpu
+
+# raytpu.<module>.<name> -> raytpu_torch.<attribute path>, or
+# (path, the argument of it that carries the raytpu function).
+COUNTERPARTS = {
+    "raytpu.cli.build_parser": "raytpu_torch.cli.build_parser",
+    "raytpu.cli.compare_ppms": "raytpu_torch.cli.compare_ppms",
+    "raytpu.cli.main": "raytpu_torch.cli.main",
+    "raytpu.cli.make_scene": "raytpu_torch.cli.make_scene",
+    "raytpu.config.RenderConfig": "raytpu_torch.config.RenderConfig",
+    "raytpu.grad.exposure_image_loss": "raytpu_torch.grad.exposure_image_loss",
+    "raytpu.grad.finite_difference_check": "raytpu_torch.grad.finite_difference_check",
+    "raytpu.grad.fit_scene": "raytpu_torch.grad.fit_scene",
+    "raytpu.grad.image_loss": "raytpu_torch.grad.image_loss",
+    "raytpu.grad.loss_and_grad": "raytpu_torch.grad.loss_and_grad",
+    # loss_and_grad(backend="cuda"): the kernel pair.
+    "raytpu.grad.loss_and_grad_pallas": ("raytpu_torch.grad.loss_and_grad", "backend"),
+    "raytpu.grad.loss_and_grad_pallas_packed": "raytpu_torch.grad.loss_and_grad_packed",
+    "raytpu.grad.loss_and_grad_sharded": "raytpu_torch.grad.loss_and_grad_sharded",
+    "raytpu.grad.loss_and_grad_wavefront": "raytpu_torch.grad.loss_and_grad_wavefront",
+    "raytpu.grad.pack_target": "raytpu_torch.grad.pack_target",
+    "raytpu.image.max_colour_value": "raytpu_torch.image.max_colour_value",
+    "raytpu.image.read_ppm": "raytpu_torch.image.read_ppm",
+    "raytpu.image.tone_map": "raytpu_torch.image.tone_map",
+    "raytpu.image.write_ppm": "raytpu_torch.image.write_ppm",
+    "raytpu.kernels.culling.beam_live_mask": "raytpu_torch.kernels.culling.beam_live_mask",
+    "raytpu.kernels.culling.bin_key": "raytpu_torch.kernels.culling.bin_key",
+    "raytpu.kernels.culling.direction_octant": "raytpu_torch.kernels.culling.direction_octant",
+    "raytpu.kernels.culling.pack_tile_scene": "raytpu_torch.kernels.culling.pack_tile_scene",
+    "raytpu.kernels.culling.scene_bounds": "raytpu_torch.kernels.culling.scene_bounds",
+    "raytpu.kernels.culling.segment_hull_live_mask":
+        "raytpu_torch.kernels.culling.segment_hull_live_mask",
+    "raytpu.kernels.culling.spatial_cell": "raytpu_torch.kernels.culling.spatial_cell",
+    "raytpu.kernels.culling.tile_bounds": "raytpu_torch.kernels.culling.tile_bounds",
+    "raytpu.kernels.trace_pallas.pack_pixel_tiles": "raytpu_torch.kernels.pack_pixel_tiles",
+    "raytpu.kernels.trace_pallas.render_image_pallas": "raytpu_torch.kernels.render_image_cuda",
+    "raytpu.kernels.trace_pallas.render_pixels_pallas": "raytpu_torch.kernels.render_pixels_cuda",
+    "raytpu.kernels.trace_pallas.render_pixels_pallas_ad":
+        "raytpu_torch.kernels.render_pixels_cuda_ad",
+    "raytpu.kernels.trace_pallas.render_tiles_pallas_ad":
+        "raytpu_torch.kernels.render_tiles_cuda_ad",
+    "raytpu.kernels.trace_pallas.tile_mask": "raytpu_torch.kernels.tile_mask",
+    "raytpu.kernels.trace_pallas.unpack_pixel_tiles": "raytpu_torch.kernels.unpack_pixel_tiles",
+    "raytpu.kernels.wavefront.render_image_wavefront":
+        "raytpu_torch.kernels.wavefront.render_image_wavefront",
+    "raytpu.kernels.wavefront.render_pixels_wavefront":
+        "raytpu_torch.kernels.wavefront.render_pixels_wavefront",
+    # The oracle kernel is built at first use (CudaKernel.build, by nvcc);
+    # raytpu's build_library builds its host oracle with g++.
+    "raytpu.native.build_library": "raytpu_torch.native.ORACLE.build",
+    "raytpu.native.render_native": "raytpu_torch.native.render_native",
+    # Process-wide setters in raytpu; arguments of render_native here.
+    "raytpu.native.set_approx_mask": ("raytpu_torch.native.render_native", "approx_mask"),
+    "raytpu.native.set_fma_mask": ("raytpu_torch.native.render_native", "fma_mask"),
+    # The port keeps one form, the host one of raytpu.image.
+    "raytpu.ops.algebra.max_colour_value": "raytpu_torch.image.max_colour_value",
+    "raytpu.ops.algebra.is_zero": "raytpu_torch.ops.algebra.is_zero",
+    "raytpu.ops.algebra.safe_sqrt": "raytpu_torch.ops.algebra.safe_sqrt",
+    "raytpu.ops.algebra.solve_quadratic": "raytpu_torch.ops.algebra.solve_quadratic",
+    "raytpu.ops.geometry.Hit": "raytpu_torch.ops.geometry.Hit",
+    "raytpu.ops.geometry.closest_hit": "raytpu_torch.ops.geometry.closest_hit",
+    "raytpu.ops.geometry.dot3": "raytpu_torch.ops.geometry.dot3",
+    "raytpu.ops.geometry.normalize": "raytpu_torch.ops.geometry.normalize",
+    "raytpu.ops.geometry.primary_container": "raytpu_torch.ops.geometry.primary_container",
+    "raytpu.ops.geometry.ray_sphere_t": "raytpu_torch.ops.geometry.ray_sphere_t",
+    "raytpu.ops.shading.is_significant": "raytpu_torch.ops.shading.is_significant",
+    "raytpu.ops.shading.matte_light_sum": "raytpu_torch.ops.shading.matte_light_sum",
+    "raytpu.ops.shading.polarised_reflection": "raytpu_torch.ops.shading.polarised_reflection",
+    "raytpu.ops.shading.reflect": "raytpu_torch.ops.shading.reflect",
+    "raytpu.ops.shading.refract": "raytpu_torch.ops.shading.refract",
+    "raytpu.oracle.OracleScene": "raytpu_torch.oracle.OracleScene",
+    "raytpu.oracle.camera_dirs_oracle": "raytpu_torch.oracle.camera_dirs_oracle",
+    "raytpu.oracle.render_oracle": "raytpu_torch.oracle.render_oracle",
+    "raytpu.oracle.trace_oracle": "raytpu_torch.oracle.trace_oracle",
+    "raytpu.parallel.mesh.describe_devices": "raytpu_torch.parallel.mesh.describe_devices",
+    "raytpu.parallel.mesh.gather_image": "raytpu_torch.parallel.mesh.gather_image",
+    "raytpu.parallel.mesh.initialize_distributed":
+        "raytpu_torch.parallel.mesh.initialize_distributed",
+    "raytpu.parallel.mesh.make_mesh": "raytpu_torch.parallel.mesh.make_mesh",
+    # A NamedSharding of the pixel axis; one process a rank renders its
+    # pixel set (offset, count, stride) of the mesh.
+    "raytpu.parallel.mesh.pixel_sharding": ("raytpu_torch.parallel.mesh.pixel_set", "mesh"),
+    # A replicated NamedSharding of the scene; every rank holds the whole
+    # scene on the device of its Mesh.
+    "raytpu.parallel.mesh.replicated": ("raytpu_torch.parallel.mesh.Mesh", "device"),
+    "raytpu.render.DroppedRaysError": "raytpu_torch.render.DroppedRaysError",
+    "raytpu.render.render_sharded": "raytpu_torch.render.render_sharded",
+    "raytpu.render.render_single": "raytpu_torch.render.render_single",
+    "raytpu.render.render_timed": "raytpu_torch.render.render_timed",
+    "raytpu.render.resolve_backend": "raytpu_torch.render.resolve_backend",
+    "raytpu.scene.Lights": "raytpu_torch.scene.Lights",
+    "raytpu.scene.Medium": "raytpu_torch.scene.Medium",
+    "raytpu.scene.Scene": "raytpu_torch.scene.Scene",
+    "raytpu.scene.Spheres": "raytpu_torch.scene.Spheres",
+    "raytpu.scene.build_scene": "raytpu_torch.scene.build_scene",
+    "raytpu.scene.default_scene": "raytpu_torch.scene.default_scene",
+    "raytpu.scene.make_material": "raytpu_torch.scene.make_material",
+    "raytpu.scene.random_scene": "raytpu_torch.scene.random_scene",
+    "raytpu.scene.single_sphere_scene": "raytpu_torch.scene.single_sphere_scene",
+    "raytpu.scene_io.load_scene": "raytpu_torch.scene_io.load_scene",
+    "raytpu.scene_io.save_scene": "raytpu_torch.scene_io.save_scene",
+    "raytpu.scene_io.scene_from_dict": "raytpu_torch.scene_io.scene_from_dict",
+    "raytpu.scene_io.scene_to_dict": "raytpu_torch.scene_io.scene_to_dict",
+    "raytpu.trace.camera_rays": "raytpu_torch.trace.camera_rays",
+    "raytpu.trace.render_image": "raytpu_torch.trace.render_image",
+    "raytpu.trace.render_pixels": "raytpu_torch.trace.render_pixels",
+    "raytpu.trace.trace_rays": "raytpu_torch.trace.trace_rays",
+    "raytpu.utils.checkpoint.load_checkpoint": "raytpu_torch.utils.checkpoint.load_checkpoint",
+    "raytpu.utils.checkpoint.save_checkpoint": "raytpu_torch.utils.checkpoint.save_checkpoint",
+    "raytpu.utils.debug.checked_render": "raytpu_torch.utils.debug.checked_render",
+    "raytpu.utils.profiling.Timer": "raytpu_torch.utils.profiling.Timer",
+    "raytpu.utils.profiling.profile_trace": "raytpu_torch.utils.profiling.profile_trace",
+    "raytpu.utils.profiling.scoped": "raytpu_torch.utils.profiling.scoped",
+}
+
+
+def public_names():
+    """Every public top-level function and class a raytpu module defines."""
+    modules = [raytpu] + [importlib.import_module(info.name) for info in
+                          pkgutil.walk_packages(raytpu.__path__, "raytpu.")]
+    names = set()
+    for module in modules:
+        for name, obj in vars(module).items():
+            if (not name.startswith("_") and callable(obj)
+                    and not inspect.ismodule(obj)
+                    and getattr(obj, "__module__", None) == module.__name__):
+                names.add(f"{module.__name__}.{name}")
+    return names
+
+
+def resolve(path):
+    """The object at a dotted path: the longest importable module prefix,
+    then attributes."""
+    parts = path.split(".")
+    for i in range(len(parts), 0, -1):
+        try:
+            obj = importlib.import_module(".".join(parts[:i]))
+        except ModuleNotFoundError:
+            continue
+        for attr in parts[i:]:
+            obj = getattr(obj, attr)
+        return obj
+    raise ModuleNotFoundError(path)
+
+
+def test_the_walk_finds_raytpus_surface():
+    names = public_names()
+    # Jitted and custom_vjp functions count, imported names do not.
+    assert {"raytpu.trace.render_image", "raytpu.grad.loss_and_grad",
+            "raytpu.kernels.trace_pallas.render_tiles_pallas_ad"} <= names
+    assert "raytpu.scene.RenderConfig" not in names
+    assert len(names) > 80
+
+
+def test_every_public_name_has_a_row():
+    names = public_names()
+    missing = sorted(names - COUNTERPARTS.keys())
+    assert not missing, f"public raytpu names without a counterpart: {missing}"
+    stale = sorted(COUNTERPARTS.keys() - names)
+    assert not stale, f"rows for names raytpu no longer has: {stale}"
+
+
+def test_every_row_resolves_in_the_port():
+    unresolved, no_argument = [], []
+    for name, target in sorted(COUNTERPARTS.items()):
+        path, argument = target if isinstance(target, tuple) else (target, None)
+        assert path.startswith("raytpu_torch."), name
+        try:
+            obj = resolve(path)
+        except (AttributeError, ModuleNotFoundError) as e:
+            unresolved.append(f"{name} -> {path}: {e}")
+            continue
+        assert callable(obj), path
+        if argument is not None and argument not in inspect.signature(obj).parameters:
+            no_argument.append(f"{name} -> {path}({argument}=)")
+    assert not unresolved, unresolved
+    assert not no_argument, no_argument

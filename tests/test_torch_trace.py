@@ -78,8 +78,23 @@ def test_camera_rays_match_raytpu(alias):
     for i in range(alias):
         for j in range(alias):
             np.testing.assert_allclose(
-                ttrace.camera_rays(tc, i, j).numpy(),
+                ttrace.camera_rays(tc, i, j, device="cpu").numpy(),
                 np.asarray(jtrace.camera_rays(jc, i, j)), rtol=0, atol=3e-7)
+
+
+def test_camera_rays_need_a_card_unless_told(monkeypatch):
+    """Without gid or device the rays go to this process's card, and
+    without a card that raises rather than compute on the CPU; a device
+    or a gid says where they go."""
+    cfg = tconfig.RenderConfig(width=48, height=20, alias_factor=3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device; pass device='cpu'"):
+        ttrace.camera_rays(cfg, 0, 0)
+    rays = ttrace.camera_rays(cfg, 1, 2, device="cpu")
+    assert rays.device.type == "cpu" and rays.shape == (cfg.num_pixels, 3)
+    gid = torch.tensor([0, 7, cfg.num_pixels - 1])
+    torch.testing.assert_close(ttrace.camera_rays(cfg, 1, 2, gid), rays[gid],
+                               rtol=0, atol=0)
 
 
 def test_chunking_does_not_change_values():
