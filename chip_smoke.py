@@ -156,6 +156,12 @@ result lines):
      0's camera rays in 1024-ray tiles, card against CPU bit for bit, and
      conservative against the eager intersection (ray_sphere_t) on the
      card, with the live share.
+ 20. the bench: render_timed(scene, cfg, mesh, warmup, iters) and
+     resolve_backend(backend, scene, cfg) positionally on the default
+     scene at config 3, as raytpu's CLI calls them; then `python -m
+     raytpu_torch.bench` in a fresh process, which must exit 0 with a
+     positive headline, the forward and the step through "cuda" and no
+     dropped ray at config 5; its line is printed on a phase line.
 K1's and K2's launches in the kernels line are phase 7's and phase 19's
 summed, each path's count beside them in "launches_by_path".
 The last three lines are nvidia-smi's, the kernels JSON and
@@ -248,14 +254,6 @@ def ref_table_err(got, want, tol=1e-5, what="the reference instance"):
     return worst
 
 
-def nvidia_smi_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr}")
-    return res.stdout.strip().splitlines()[0]
-
-
 # The ptxas resource lines (sm_90a) of K1's and K2's reference instances
 # (the previous designs, kept as they were) from before the sphere queries
 # became a policy of trace_common.cuh: the brute-force policy they use must
@@ -321,7 +319,7 @@ def build_counting_host():
 
 
 def median_ms(timer, name):
-    return float(np.median(timer.summary()[name])) * 1e3
+    return float(np.median(timer.times()[name])) * 1e3
 
 
 # fp32 operations (+, -, *, /, sqrt, compare, select and min/max: one each)
@@ -876,8 +874,8 @@ def wavefront_phases(dev, count_lib):
                 render_pixels_cuda(sc, cfg)
             with timer.section("wf"):
                 render_pixels_wavefront(sc, cfg, **i["wf_opts"])
-        k, w = (float(np.median(timer.summary()[n][1:])) * 1e3 for n in ("k1", "wf"))
-        auto = render.resolve_backend("auto", dev, sc, cfg)
+        k, w = (float(np.median(timer.times()[n][1:])) * 1e3 for n in ("k1", "wf"))
+        auto = render.resolve_backend("auto", sc, cfg)
         print(f"phase 12: crossover {label}: N*2^d {sc.spheres.count * 2 ** depth}; "
               f"K1 {k:.3f} ms, wavefront {w:.3f} ms ({w / k:.3f}x; dropped "
               f"{i['dropped']} at {i['wf_opts']}); auto picks {auto}")
@@ -901,7 +899,7 @@ def wavefront_phases(dev, count_lib):
                     wf()
             finally:
                 wavefront.compact = compact
-    st_ms, sy_ms = (float(np.median(timer.summary()[m][1:])) * 1e3
+    st_ms, sy_ms = (float(np.median(timer.times()[m][1:])) * 1e3
                     for m in ("static", "synced"))
     print(f"phase 12: config5 frame with a host read of every kept count: "
           f"{sy_ms:.3f} ms against {st_ms:.3f} ms without")
@@ -1314,7 +1312,7 @@ def training_phases(dev):
             with timer.section("wf"):
                 infos.append(grad.loss_and_grad_wavefront(
                     sc, cfg, tgt, on_drop="ignore", return_info=True, **first)[2])
-        k, w = (float(np.median(timer.summary()[n][1:])) * 1e3 for n in ("k2", "wf"))
+        k, w = (float(np.median(timer.times()[n][1:])) * 1e3 for n in ("k2", "wf"))
         ratios.setdefault((n_spheres, depth), []).append(w / k)
         auto = grad.resolve_train_backend("auto", sc, cfg)
         faster = "wavefront" if w < k else "cuda"
@@ -1537,7 +1535,7 @@ def fault_phase(dev):
     ]
     for label, scene, cfg, want in cases:
         t0 = time.perf_counter()
-        check(render.resolve_backend("auto", dev, scene, cfg) == want
+        check(render.resolve_backend("auto", scene, cfg) == want
               and grad.resolve_train_backend("auto", scene, cfg) == want,
               f"{label}: auto does not take {want}")
         reset()
@@ -1945,6 +1943,49 @@ def oracle_phase(dev, host_fn):
 FITTED = ("spheres.pos", "spheres.radius", "spheres.matte", "lights.col")
 
 
+def bench_phase(dev) -> dict:
+    """Phase 20: raytpu's positional calls of render_timed and
+    resolve_backend on a card scene, then raytpu_torch.bench in a fresh
+    process.  Returns the bench's line."""
+    import torch
+
+    import raytpu_torch.render as render
+    from raytpu_torch.bench import CONFIG3, DEADLINE_S
+    from raytpu_torch.parallel import make_mesh
+    from raytpu_torch.scene import default_scene
+
+    scene = default_scene(device=dev)
+    _, stats = render.render_timed(scene, CONFIG3, make_mesh(dev), 1, 3)
+    backend = render.resolve_backend("auto", scene, CONFIG3)
+    check(stats["backend"] == backend == "cuda",
+          f"render_timed took {stats['backend']}, resolve_backend {backend}")
+    check(stats["device"] == torch.cuda.get_device_name(dev) and stats["ranks"] == 1
+          and stats["dropped"] == 0, f"render_timed's stats {stats}")
+    print(f"phase 20: render_timed(scene, config3, mesh, 1, 3): backend "
+          f"{stats['backend']} (resolve_backend(\"auto\", scene, cfg) too), "
+          f"{stats['seconds'] * 1e3:.3f} ms, {stats['mrays_per_s']:.2f} camera Mrays/s")
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "raytpu_torch.bench"], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+                         text=True, timeout=DEADLINE_S + 60)
+    seconds = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    check(res.returncode == 0 and lines,
+          f"the bench exited {res.returncode}: {res.stdout[-2000:]}{res.stderr[-4000:]}")
+    line = json.loads(lines[-1])
+    check(isinstance(line["value"], float) and line["value"] > 0,
+          f"the bench's headline {line['value']}")
+    check(line["fwd_bwd_backend"] == "cuda" and line["fwd_backend"] == "cuda",
+          f"the bench's backends: forward {line['fwd_backend']}, step "
+          f"{line['fwd_bwd_backend']}")
+    check(line["config5_dropped_rays"] == 0,
+          f"config 5 dropped {line['config5_dropped_rays']} rays")
+    print(f"phase 20: python -m raytpu_torch.bench in a fresh process: exit 0 "
+          f"in {seconds:.1f} s; {line['metric']} {line['value']:.2f}")
+    return line
+
+
 def step_times(dev) -> dict:
     """Phase 19's times at config 3 from the fit example's perturbed
     geometry against the true frame: loss_and_grad_packed and
@@ -2172,6 +2213,7 @@ def main() -> int:
     import raytpu_torch.render as render
     from raytpu_torch import cli
     from raytpu_torch.config import BENCH_CONFIGS, RenderConfig
+    from raytpu_torch.device import nvidia_smi_line
     from raytpu_torch.examples import fit_scene as fit_example
     from raytpu_torch.image import read_ppm, tone_map
     from raytpu_torch.kernels.trace_cuda import (TRACE_BWD, TRACE_FWD,
@@ -2526,6 +2568,7 @@ def main() -> int:
     sharded = sharded_phase(dev, frame11, golden_ppm)
     oracle_launches, oracle_times = oracle_phase(dev, oracle_host_fn)
     (packed_fwd, packed_bwd), packed = packed_phase(dev, smi)
+    bench_line = bench_phase(dev)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
@@ -2570,6 +2613,7 @@ def main() -> int:
                         "plain_ms": {k: v[1] for k, v in oracle_times.items()},
                         "launches": oracle_launches}))
     print("phase 19: packed-tile step and culling " + json.dumps(packed))
+    print("phase 20: bench " + json.dumps(bench_line))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

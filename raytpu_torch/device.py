@@ -1,11 +1,13 @@
 """The default-device rule of every entry point: a tensor is made on this
 process's card unless the caller names a device, and without a card that
 raises (the CPU is never taken in its place; device="cpu" asks for it).
-parallel.mesh re-exports local_device."""
+parallel.mesh re-exports local_device.  nvidia_smi_line names the card and
+its power limit beside a measurement."""
 
 from __future__ import annotations
 
 import os
+import subprocess
 
 import torch
 
@@ -23,3 +25,16 @@ def local_device() -> torch.device:
 def resolve_device(device) -> torch.device:
     """`device`, or this process's card (local_device) when None."""
     return local_device() if device is None else torch.device(device)
+
+
+def nvidia_smi_line() -> str:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them (e.g.
+    "NVIDIA H100 80GB HBM3, 700.00 W").  Raises RuntimeError if nvidia-smi
+    fails."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr}")
+    return res.stdout.strip().splitlines()[0]

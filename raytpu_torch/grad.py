@@ -82,7 +82,7 @@ def resolve_train_backend(backend: str, scene, cfg: RenderConfig,
                 or _wf_wins_train(n, cfg)):
             return "wavefront"
         return "cuda"
-    return resolve_backend(backend, scene.device)
+    return resolve_backend(backend, scene)
 
 
 def _render_ad(scene, cfg: RenderConfig, gid, backend: str,

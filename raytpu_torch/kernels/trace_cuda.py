@@ -104,11 +104,13 @@ class CudaKernel:
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
 
-    def build(self) -> float:
+    def build(self, force: bool = False) -> float:
         """Compile the source with nvcc unless the library for this exact
-        source is already built; returns the seconds spent compiling."""
+        source is already built (or `force`); returns the seconds spent
+        compiling.  A library already loaded in this process stays
+        loaded."""
         path = self.library_path()
-        if path.exists():
+        if path.exists() and not force:
             return 0.0
         from torch.utils.cpp_extension import CUDA_HOME
 

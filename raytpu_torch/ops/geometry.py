@@ -86,6 +86,7 @@ class Hit:
     t: torch.Tensor        # (...,)
     point: torch.Tensor    # (..., 3)
     normal: torch.Tensor   # (..., 3) unit, outward
+    sq_dist: torch.Tensor  # (...,) |t*d|^2 (raytracer.h:180-181)
     index: torch.Tensor    # (...,) int64, undefined where ~found
 
 
@@ -103,7 +104,9 @@ def closest_hit(origin, direction, spheres) -> Hit:
 
     point = origin + t[..., None] * direction
     normal = normalize(point - spheres.pos[index])
-    return Hit(found=found, t=t, point=point, normal=normal, index=index)
+    sq_dist = t * t * dot3(direction, direction)
+    return Hit(found=found, t=t, point=point, normal=normal,
+               sq_dist=sq_dist, index=index)
 
 
 def primary_container(point, spheres):

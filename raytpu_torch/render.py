@@ -28,6 +28,7 @@ import warnings
 import torch
 
 from raytpu_torch.config import RenderConfig
+from raytpu_torch.device import resolve_device
 from raytpu_torch.kernels.trace_cuda import (dense_takes, render_pixels_cuda,
                                              render_pixels_torch)
 from raytpu_torch.kernels.wavefront import render_pixels_wavefront
@@ -70,14 +71,16 @@ def _wf_wins_train(n_spheres: int, cfg: RenderConfig) -> bool:
             and n_spheres * cfg.max_depth >= _WF_MIN_TRAIN_WORK)
 
 
-def resolve_backend(backend: str, device, scene=None,
-                    cfg: RenderConfig | None = None) -> str:
-    """Resolve "auto" to a concrete backend for a scene on `device`.  With
-    `scene` and `cfg`, "auto" on a CUDA device is the wavefront where the
-    dense kernel does not take the scene at that depth (at any depth, 0
-    included) or where the measured crossover says so.  An explicit "cuda"
-    is kept: its kernel raises on what it does not take."""
-    device = torch.device(device)
+def resolve_backend(backend: str = "auto", scene=None,
+                    cfg: RenderConfig | None = None, device=None) -> str:
+    """Resolve "auto" to a concrete backend for a scene on its device (or,
+    without a scene, on `device`, default this process's card, which
+    raises without one).  With `scene` and `cfg`, "auto" on a CUDA device
+    is the wavefront where the dense kernel does not take the scene at
+    that depth (at any depth, 0 included) or where the measured crossover
+    says so.  An explicit "cuda" is kept: its kernel raises on what it
+    does not take."""
+    device = scene.device if scene is not None else resolve_device(device)
     if backend == "auto":
         if device.type != "cuda":
             return "torch"
@@ -188,7 +191,7 @@ def render_sharded(scene, cfg: RenderConfig, mesh=None, backend: str = "auto",
     ranks, read once a rung, so that every rank takes the same rung, and
     drops left are reported per `on_drop` on every rank."""
     mesh = make_mesh(scene.device) if mesh is None else mesh
-    backend = resolve_backend(backend, scene.device, scene, cfg)
+    backend = resolve_backend(backend, scene, cfg)
     offset, count, stride = pixel_set(mesh, cfg, interleave)
     info = dict(dropped=0)
     if backend == "cuda":
@@ -217,19 +220,23 @@ def render_sharded(scene, cfg: RenderConfig, mesh=None, backend: str = "auto",
     return (img, info) if return_info else img
 
 
-def render_timed(scene, cfg: RenderConfig, warmup: int = 1, iters: int = 3,
-                 backend: str = "auto", wf_opts: dict | None = None,
-                 on_drop: str = "warn", mesh=None, interleave: bool = False):
-    """Render a scene on a CUDA device and time it with CUDA events on the
-    current stream (warm-up excluded), returning (image, stats).  Mrays/s
-    counts camera rays (pixels * alias^2); `traced_rays` counts every slot
-    of the 2^depth bounce tree; `dropped` is the wavefront's count of lost
-    live rays in the last frame (0 on the other backends).  The wavefront's
-    warm-up settles its ladder, and the timed frames reuse its options.
-    With `mesh`, the frame is render_sharded's over it (`interleave` as
-    there), its gather included; `ranks` counts them (1 without)."""
+def render_timed(scene, cfg: RenderConfig, mesh=None, warmup: int = 1,
+                 iters: int = 3, backend: str = "auto",
+                 wf_opts: dict | None = None, on_drop: str = "warn",
+                 interleave: bool = False):
+    """Render a scene and time it (warm-up excluded), returning (image,
+    stats).  On a card each frame is timed with CUDA events on the current
+    stream, on the CPU by the host clock.  Mrays/s counts camera rays
+    (pixels * alias^2); `traced_rays` counts every slot of the 2^depth
+    bounce tree; `seconds` is the fastest frame and `times` every frame's;
+    `dropped` is the wavefront's count of lost live rays in the last frame
+    (0 on the other backends).  The wavefront's warm-up settles its
+    ladder, and the timed frames reuse its options.  With `mesh`, the
+    frame is render_sharded's over it (`interleave` as there), its gather
+    included; `ranks` counts them (1 without).  `device` names the card,
+    or the CPU."""
     timer = Timer(scene.device)
-    backend = resolve_backend(backend, scene.device, scene, cfg)
+    backend = resolve_backend(backend, scene, cfg)
     mesh = Mesh(0, 1, scene.device) if mesh is None else mesh
     for _ in range(max(warmup, 0)):
         _, info = render_sharded(scene, cfg, mesh, backend, wf_opts, True,
@@ -239,7 +246,7 @@ def render_timed(scene, cfg: RenderConfig, warmup: int = 1, iters: int = 3,
         with timer.section("render"):
             img, info = render_sharded(scene, cfg, mesh, backend, wf_opts,
                                        True, on_drop, interleave)
-    times = timer.summary()["render"]
+    times = timer.times()["render"]
     dt = min(times)
     primary = cfg.rays_per_frame
     tree = (2 ** (cfg.max_depth + 1) - 1) * primary
@@ -251,9 +258,10 @@ def render_timed(scene, cfg: RenderConfig, warmup: int = 1, iters: int = 3,
         traced_mrays_per_s=tree / dt / 1e6,
         backend=backend,
         dropped=info["dropped"],
-        device=torch.cuda.get_device_name(scene.device),
+        times=times,
+        device=(torch.cuda.get_device_name(scene.device)
+                if scene.device.type == "cuda" else str(scene.device)),
         ranks=mesh.size,
         interleave=interleave,
-        times=times,
     )
     return img, stats

@@ -1,5 +1,6 @@
-"""Utilities: CUDA-event timing, profiler traces and named spans, fit
-checkpoints, the checked render."""
+"""Utilities: section timing (CUDA events on a card, the host clock on
+the CPU), profiler traces and named spans, fit checkpoints, the checked
+render."""
 
 from raytpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from raytpu_torch.utils.debug import checked_render

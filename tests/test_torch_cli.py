@@ -115,12 +115,16 @@ def test_device_picks_one_device(tmp_path, capsys):
 
 
 def test_time_and_cuda_backend_need_a_card(capsys):
-    """--time and --backend cuda need a CUDA scene; without --cpu and
-    without a card the CLI exits 2 rather than render on the CPU."""
+    """--backend cuda needs a CUDA scene, and without --cpu and without a
+    card the CLI exits 2 rather than render on the CPU; --time under --cpu
+    times the CPU scene by the host clock and prints raytpu's stats line,
+    the device named as "cpu" (not a card)."""
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA device")
-    assert tcli.main(SMALL + ["--time"]) == 2
-    assert "CUDA" in capsys.readouterr().err
+    assert tcli.main(SMALL + ["--time"]) == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["device"] == "cpu" and stats["backend"] == "torch"
+    assert stats["primary_rays"] == 32 * 24 and stats["mrays_per_s"] > 0
     with pytest.raises(ValueError):
         tcli.main(SMALL + ["--backend", "cuda"])
     no_cpu = [a for a in SMALL if a != "--cpu"]

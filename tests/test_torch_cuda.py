@@ -92,7 +92,7 @@ def test_kernel_matches_plain_version(dev, case):
 
 
 def test_auto_backend_runs_the_kernel(dev):
-    assert resolve_backend("auto", dev) == "cuda"
+    assert resolve_backend("auto", device=dev) == "cuda"
     cfg = RenderConfig(width=40, height=30, max_depth=2, alias_factor=2)
     before = trace_cuda.TRACE_FWD.launches
     img = render_single(default_scene(device=dev), cfg)
@@ -698,7 +698,7 @@ def test_auto_renders_beyond_the_dense_bounds(dev):
          RenderConfig(width=64, height=48, max_depth=2, alias_factor=1)),
     ]
     for scene, cfg in cases:
-        assert resolve_backend("auto", dev, scene, cfg) == "wavefront"
+        assert resolve_backend("auto", scene, cfg, device=dev) == "wavefront"
         before = wavefront.WF_LEVEL.launches
         img = render_single(scene, cfg)
         torch.cuda.synchronize()
@@ -930,3 +930,33 @@ def test_oracle_kernel_refuses_what_it_does_not_take(dev):
                dict(offset=40, count=9)):
         with pytest.raises(ValueError):
             render_native(scene, cfg, **kw)
+
+
+def test_bench_and_its_timing_on_the_card(dev):
+    """raytpu_torch.bench's inner function at a small config: the forward
+    and the step through the kernels ("auto" takes "cuda"), every timed key
+    measured on the device, config 5 shrunk to random_scene(8) through the
+    wavefront with no drop; Timer on the card times by CUDA events, and
+    render_timed takes raytpu's positional mesh."""
+    from raytpu_torch import bench
+    from raytpu_torch.parallel import make_mesh
+    from raytpu_torch.render import render_timed
+    from raytpu_torch.utils.profiling import Timer
+
+    cfg = RenderConfig(width=64, height=48, max_depth=2, alias_factor=1)
+    line = bench.run(dev, cfg, cfg, cfg, config5_spheres=8)
+    assert (line["fwd_backend"], line["fwd_bwd_backend"], line["backend"]) == (
+        "cuda", "cuda", "cuda")
+    assert line["value"] == line["step_device_mrays_per_s"] > 0
+    assert line["fwd_device_ms"] > 0 and len(line["step_device_times_ms"]) == bench.REPS
+    assert line["config5_dropped_rays"] == 0
+    assert line["device"] == torch.cuda.get_device_name(dev)
+    assert line["power_limit"].endswith("W")
+    json.dumps(line)
+    timer = Timer(dev)
+    with timer.section("k1"):
+        render_pixels_cuda(default_scene(device=dev), cfg)
+    assert len(timer.times()["k1"]) == 1 and timer.summary()["k1"] > 0
+    _, stats = render_timed(default_scene(device=dev), cfg, make_mesh(dev), 1, 2)
+    assert stats["backend"] == "cuda" and stats["ranks"] == 1
+    assert stats["device"] == torch.cuda.get_device_name(dev)

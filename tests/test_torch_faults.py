@@ -75,13 +75,13 @@ BEYOND = {"depth 9": (3, 2, trace_cuda.MAX_DEPTH + 1),
 def test_render_auto_takes_the_wavefront_beyond_the_dense_bounds(case):
     n, nl, depth = BEYOND[case]
     cfg = tconfig.RenderConfig(max_depth=depth, **SMALL)
-    assert resolve_backend("auto", CUDA, _stub(n, nl), cfg) == "wavefront"
+    assert resolve_backend("auto", _stub(n, nl), cfg, device=CUDA) == "wavefront"
     # Within the bounds the measured crossover decides, as before.
-    assert resolve_backend("auto", CUDA, _stub(),
+    assert resolve_backend("auto", _stub(),
                            tconfig.RenderConfig(max_depth=trace_cuda.MAX_DEPTH,
-                                                **SMALL)) == "cuda"
+                                                **SMALL), device=CUDA) == "cuda"
     # An explicit backend is kept (its kernel raises on what it does not take).
-    assert resolve_backend("cuda", CUDA, _stub(n, nl), cfg) == "cuda"
+    assert resolve_backend("cuda", _stub(n, nl), cfg, device=CUDA) == "cuda"
 
 
 @pytest.mark.parametrize("case", sorted(BEYOND))

@@ -108,28 +108,41 @@ def _with(scene, **spheres):
         scene, spheres=dataclasses.replace(scene.spheres, **spheres))
 
 
+@dataclasses.dataclass
+class _OnCard:
+    """A CPU scene's counts reporting a CUDA device: all that the routing
+    reads of a scene (the device is only inspected, not used)."""
+
+    spheres: object
+    lights: object
+    device: torch.device = torch.device("cuda")
+
+
 def test_backend_resolution():
-    assert resolve_backend("auto", "cpu") == "torch"
-    assert resolve_backend("torch", "cpu") == "torch"
+    assert resolve_backend("auto", device="cpu") == "torch"
+    assert resolve_backend("torch", device="cpu") == "torch"
     with pytest.raises(ValueError):
-        resolve_backend("cuda", "cpu")
+        resolve_backend("cuda", device="cpu")
     with pytest.raises(ValueError):
-        resolve_backend("pallas", "cpu")
-    assert resolve_backend("wavefront", "cpu") == "wavefront"
+        resolve_backend("pallas", device="cpu")
+    assert resolve_backend("wavefront", device="cpu") == "wavefront"
     # "auto" on a card: the dense kernel unless the scene and config pass
-    # the measured crossover (the device is only inspected, not used); the
-    # cells measured at its two ends stay on their sides.
+    # the measured crossover; the cells measured at its two ends stay on
+    # their sides.  A scene's own device wins over `device`.
     deep = tconfig.RenderConfig(width=8, height=8, max_depth=6, alias_factor=1)
     big = tscene.random_scene(256, seed=3, device="cpu")
-    assert resolve_backend("auto", "cuda") == "cuda"
-    assert resolve_backend("auto", "cuda", big, deep) == "wavefront"
-    assert resolve_backend("auto", "cuda", tscene.default_scene(device="cpu"), deep) == "cuda"
+    on_card = lambda s: _OnCard(s.spheres, s.lights)  # noqa: E731
+    assert resolve_backend("auto", device="cuda") == "cuda"
+    assert resolve_backend("auto", on_card(big), deep) == "wavefront"
+    assert resolve_backend("auto", on_card(tscene.default_scene(device="cpu")),
+                           deep) == "cuda"
     for n, depth in ((16, 6), (64, 2), (64, 4), (128, 2)):
         cfg = tconfig.RenderConfig(width=8, height=8, max_depth=depth)
         want = "wavefront" if trender._wf_wins(n, depth) else "cuda"
         scene = tscene.random_scene(n, device="cpu")
-        assert resolve_backend("auto", "cuda", scene, cfg) == want
-    assert resolve_backend("auto", "cpu", big, deep) == "torch"
+        assert resolve_backend("auto", on_card(scene), cfg) == want
+    assert resolve_backend("auto", big, deep) == "torch"
+    assert resolve_backend("auto", big, deep, device="cuda") == "torch"
     scene = tscene.single_sphere_scene(device="cpu")
     cfg = tconfig.RenderConfig(width=8, height=4, max_depth=0, alias_factor=1)
     with pytest.raises(ValueError):

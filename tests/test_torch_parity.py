@@ -3,23 +3,27 @@
 The port does everything raytpu does; this table is the record of where.
 It walks raytpu's modules (pkgutil.walk_packages) and collects every
 public top-level function and class that a module defines itself (jitted
-and custom_vjp functions included, not the names a module imports).  Each
-must have a row naming a raytpu_torch attribute, and each row must
-resolve.  Where the counterpart has another form, the row names the
-argument that carries raytpu's function, and the counterpart must take
-it; the comment says how it maps.  The port says cuda where raytpu says
-pallas.
+and custom_vjp functions included, not the names a module imports), and
+the JAX bench's (bench.py).  Each must have a row naming a raytpu_torch
+attribute, and each row must resolve.  Where the counterpart has another
+form, the row names the argument that carries raytpu's function, and the
+counterpart must take it; the comment says how it maps.  A row of the
+same form takes raytpu's parameters in raytpu's order, bar the named
+exceptions, and may add its own only after them.  The port says cuda
+where raytpu says pallas.
 """
 
 import importlib
 import inspect
 import pkgutil
 
+import bench
 import raytpu
 
 # raytpu.<module>.<name> -> raytpu_torch.<attribute path>, or
 # (path, the argument of it that carries the raytpu function).
 COUNTERPARTS = {
+    "bench.main": "raytpu_torch.bench.main",
     "raytpu.cli.build_parser": "raytpu_torch.cli.build_parser",
     "raytpu.cli.compare_ppms": "raytpu_torch.cli.compare_ppms",
     "raytpu.cli.main": "raytpu_torch.cli.main",
@@ -62,8 +66,9 @@ COUNTERPARTS = {
         "raytpu_torch.kernels.wavefront.render_image_wavefront",
     "raytpu.kernels.wavefront.render_pixels_wavefront":
         "raytpu_torch.kernels.wavefront.render_pixels_wavefront",
-    # The oracle kernel is built at first use (CudaKernel.build, by nvcc);
-    # raytpu's build_library builds its host oracle with g++.
+    # The oracle kernel is built at first use (CudaKernel.build, by nvcc,
+    # `force` as raytpu's); raytpu's build_library builds its host oracle
+    # with g++.
     "raytpu.native.build_library": "raytpu_torch.native.ORACLE.build",
     "raytpu.native.render_native": "raytpu_torch.native.render_native",
     # Process-wide setters in raytpu; arguments of render_native here.
@@ -90,10 +95,16 @@ COUNTERPARTS = {
     "raytpu.oracle.render_oracle": "raytpu_torch.oracle.render_oracle",
     "raytpu.oracle.trace_oracle": "raytpu_torch.oracle.trace_oracle",
     "raytpu.parallel.mesh.describe_devices": "raytpu_torch.parallel.mesh.describe_devices",
-    "raytpu.parallel.mesh.gather_image": "raytpu_torch.parallel.mesh.gather_image",
+    # raytpu reads a sharded global array back; one process a rank gathers
+    # each rank's rows over its Mesh.
+    "raytpu.parallel.mesh.gather_image": ("raytpu_torch.parallel.mesh.gather_image",
+                                          "rows"),
     "raytpu.parallel.mesh.initialize_distributed":
         "raytpu_torch.parallel.mesh.initialize_distributed",
-    "raytpu.parallel.mesh.make_mesh": "raytpu_torch.parallel.mesh.make_mesh",
+    # A JAX mesh over a device list with a named axis; a rank's Mesh is its
+    # place in the process group and the one device it renders on (the
+    # axis is always PIXEL_AXIS).
+    "raytpu.parallel.mesh.make_mesh": ("raytpu_torch.parallel.mesh.make_mesh", "device"),
     # A NamedSharding of the pixel axis; one process a rank renders its
     # pixel set (offset, count, stride) of the mesh.
     "raytpu.parallel.mesh.pixel_sharding": ("raytpu_torch.parallel.mesh.pixel_set", "mesh"),
@@ -131,10 +142,35 @@ COUNTERPARTS = {
 }
 
 
+# raytpu's parameters the port's same-form counterparts leave out, and why.
+DROPPED = {
+    "interpret": "the Pallas interpreter: a kernel's wrapper runs its plain "
+                 "version on a CPU tensor instead",
+    "compact_mode": "raytpu's choice between its global and blocked "
+                    "compaction sorts: the port has one compaction, K5",
+    "ad": "the wavefront is differentiable whenever autograd records and a "
+          "scene leaf requires grad",
+    "streams": "the wavefront's chunk pipelines, measured neutral on the TPU "
+               "and not ported (ROADMAP)",
+}
+# raytpu's parameters the port names otherwise: the port's pytree is a Scene.
+RENAMED = {"pytree": "scene"}
+
+
+def parameters(obj):
+    """The names of obj's parameters, in order, without self, *args and
+    **kwargs."""
+    return [p.name for p in inspect.signature(obj).parameters.values()
+            if p.name != "self"
+            and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
 def public_names():
-    """Every public top-level function and class a raytpu module defines."""
-    modules = [raytpu] + [importlib.import_module(info.name) for info in
-                          pkgutil.walk_packages(raytpu.__path__, "raytpu.")]
+    """Every public top-level function and class a raytpu module defines,
+    and bench.py's."""
+    modules = [raytpu, bench] + [
+        importlib.import_module(info.name)
+        for info in pkgutil.walk_packages(raytpu.__path__, "raytpu.")]
     names = set()
     for module in modules:
         for name, obj in vars(module).items():
@@ -192,3 +228,41 @@ def test_every_row_resolves_in_the_port():
             no_argument.append(f"{name} -> {path}({argument}=)")
     assert not unresolved, unresolved
     assert not no_argument, no_argument
+
+
+def test_same_form_rows_take_raytpus_parameters_in_order():
+    """raytpu's positional calls work on the port: each same-form row's
+    parameters begin with raytpu's, in raytpu's order (DROPPED left out,
+    RENAMED renamed), and the port adds its own only after them."""
+    wrong = []
+    for name, target in sorted(COUNTERPARTS.items()):
+        if isinstance(target, tuple) or not callable(resolve(name)):
+            continue
+        try:
+            want = parameters(resolve(name))
+        except (TypeError, ValueError):  # no signature (an exception class)
+            continue
+        want = [RENAMED.get(p, p) for p in want if p not in DROPPED]
+        got = parameters(resolve(target))
+        if got[:len(want)] != want:
+            wrong.append(f"{name}{tuple(want)} -> {target}{tuple(got)}")
+    assert not wrong, wrong
+
+
+def test_the_order_check_sees_a_fault():
+    """The check above catches the two faults it was written for: the
+    port's old render_timed (mesh eighth) and resolve_backend (device
+    second) against raytpu's."""
+    def old_render_timed(scene, cfg, warmup=1, iters=3, backend="auto",
+                         wf_opts=None, on_drop="warn", mesh=None,
+                         interleave=False):
+        pass
+
+    def old_resolve_backend(backend, device, scene=None, cfg=None):
+        pass
+
+    for name, old in (("raytpu.render.render_timed", old_render_timed),
+                      ("raytpu.render.resolve_backend", old_resolve_backend)):
+        want = parameters(resolve(name))
+        assert parameters(old)[:len(want)] != want
+        assert parameters(resolve(COUNTERPARTS[name]))[:len(want)] == want
