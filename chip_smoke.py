@@ -160,8 +160,10 @@ result lines):
      resolve_backend(backend, scene, cfg) positionally on the default
      scene at config 3, as raytpu's CLI calls them; then `python -m
      raytpu_torch.bench` in a fresh process, which must exit 0 with a
-     positive headline, the forward and the step through "cuda" and no
-     dropped ray at config 5; its line is printed on a phase line.
+     positive headline, the forward and the step through "cuda", no
+     dropped ray at config 5, and each timed key's launches those of its
+     path: one K1 a forward, one K1 and one K2 a step, K3 and K5 and no
+     K1 at config 5; its line is printed on a phase line.
 K1's and K2's launches in the kernels line are phase 7's and phase 19's
 summed, each path's count beside them in "launches_by_path".
 The last three lines are nvidia-smi's, the kernels JSON and
@@ -1950,7 +1952,7 @@ def bench_phase(dev) -> dict:
     import torch
 
     import raytpu_torch.render as render
-    from raytpu_torch.bench import CONFIG3, DEADLINE_S
+    from raytpu_torch.bench import CONFIG3, DEADLINE_S, REPS
     from raytpu_torch.parallel import make_mesh
     from raytpu_torch.scene import default_scene
 
@@ -1981,8 +1983,20 @@ def bench_phase(dev) -> dict:
           f"{line['fwd_bwd_backend']}")
     check(line["config5_dropped_rays"] == 0,
           f"config 5 dropped {line['config5_dropped_rays']} rays")
+    # Each timed key's launches (warm-up and runs): the path it timed.
+    calls = REPS + 1
+    dense = {"trace_fwd": calls, "trace_bwd": calls, "wf_level": 0, "wf_compact": 0}
+    want = {"fwd": dict(dense, trace_bwd=0), "fwd_device": dict(dense, trace_bwd=0),
+            "fwd_torch": dict.fromkeys(dense, 0), "fwd_bwd": dense,
+            "step_device": dense, "golden_800x600_d5_fwd_bwd": dense}
+    got = dict(line["launches"])
+    c5 = got.pop("config5_1080p_d6_N256_wavefront")
+    check(got == want, f"the bench's launches {got}, expected {want}")
+    check(c5["wf_level"] > 0 and c5["wf_compact"] > 0 and c5["trace_fwd"] == 0
+          and c5["trace_bwd"] == 0, f"config 5's launches {c5}")
     print(f"phase 20: python -m raytpu_torch.bench in a fresh process: exit 0 "
-          f"in {seconds:.1f} s; {line['metric']} {line['value']:.2f}")
+          f"in {seconds:.1f} s; {line['metric']} {line['value']:.2f}; launches "
+          f"{json.dumps(line['launches'])}, config 5 {json.dumps(c5)}")
     return line
 
 
@@ -2233,7 +2247,7 @@ def main() -> int:
     from raytpu_torch.utils.profiling import Timer
 
     dev = torch.device("cuda:0")
-    smi = nvidia_smi_line()
+    smi = nvidia_smi_line(dev)
     name = torch.cuda.get_device_name(dev)
     print(f"phase 1: device {name} | nvidia-smi: {smi}")
 

@@ -11,7 +11,8 @@ raytpu.render.render_timed.  The line also carries:
   * the forward: `render_timed` on "auto" (`fwd_*`), on the eager tracer
     (`fwd_torch_mrays_per_s`, bench.py's `fwd_jnp_mrays_per_s`: the port
     says torch where raytpu says jnp), and the forward kernel alone
-    between CUDA events (`fwd_device_*`).  bench.py takes its device times
+    between CUDA events, the scene's tables built before them
+    (`fwd_device_*`).  bench.py takes its device times
     by a slope over K frames in one jit, to cancel a per-dispatch floor of
     its TPU host; this card has no such floor, so the events time one
     call;
@@ -23,7 +24,10 @@ raytpu.render.render_timed.  The line also carries:
     the wavefront and its own capacity ladder
     (`config5_1080p_d6_N256_wavefront_s`, `config5_dropped_rays`);
   * the card (`device`, `power_limit` from nvidia-smi), `backend` (the
-    device type) and the frame (`width`, `height`, `depth`, `alias`).
+    device type) and the frame (`width`, `height`, `depth`, `alias`);
+  * `launches`: for each timed key, each main-path kernel's launches in
+    its warm-up and runs (trace_fwd K1, trace_bwd K2, wf_level K3,
+    wf_compact K5), which show the path each key timed.
 
 Each time is the median of REPS runs after one warm-up (the eager forward:
 3 runs, as bench.py), and its runs ride beside it as a `*_times_ms` list:
@@ -44,7 +48,6 @@ import os
 import statistics
 import sys
 import threading
-import time
 import traceback
 
 import torch
@@ -52,7 +55,9 @@ import torch
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.device import local_device, nvidia_smi_line
 from raytpu_torch.grad import loss_and_grad, resolve_train_backend
-from raytpu_torch.kernels.trace_cuda import render_pixels_cuda
+from raytpu_torch.kernels.trace_cuda import (TRACE_BWD, TRACE_FWD,
+                                             render_pixels_cuda, scene_tables)
+from raytpu_torch.kernels.wavefront import WF_COMPACT, WF_LEVEL
 from raytpu_torch.render import render_timed
 from raytpu_torch.scene import default_scene, random_scene
 from raytpu_torch.utils.profiling import Timer
@@ -68,6 +73,9 @@ PROBE_S = 120     # the device probe's watchdog
 # line: a healthy run took 36 s on an NVIDIA H100 80GB HBM3 at 700 W, 25 s
 # of it the eager forward's four frames.
 DEADLINE_S = 600
+# The main path's kernels, by the names of chip_smoke.py's kernels line.
+KERNELS = {"trace_fwd": TRACE_FWD, "trace_bwd": TRACE_BWD,
+           "wf_level": WF_LEVEL, "wf_compact": WF_COMPACT}
 
 
 def metric(cfg: RenderConfig) -> str:
@@ -93,34 +101,26 @@ def train_step(scene, cfg: RenderConfig):
             resolve_train_backend("auto", scene, cfg))
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _host_times(fn, device, reps=REPS):
-    """Seconds of each of `reps` calls by the host clock, each ending in a
-    synchronise, after one warm-up call."""
-    fn()
-    _sync(device)
-    times = []
+def _times(fn, timer: Timer, reps: int = REPS):
+    """Seconds of each of `reps` calls of fn after one warm-up call, by
+    `timer`: Timer() for the host clock, each call's CUDA result waited
+    for; Timer(device) for CUDA events."""
+    with timer.section("warm-up") as box:
+        box["value"] = fn()
     for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        _sync(device)
-        times.append(time.perf_counter() - t0)
-    return times
-
-
-def _event_times(fn, device, reps=REPS):
-    """Seconds of each of `reps` calls between CUDA events, after one
-    warm-up call."""
-    timer = Timer(device)
-    fn()
-    for _ in range(reps):
-        with timer.section("run"):
-            fn()
+        with timer.section("run") as box:
+            box["value"] = fn()
     return timer.times()["run"]
+
+
+def _counted(measure, launches: dict, key: str):
+    """measure()'s result; each kernel's launches in it go to
+    launches[key]."""
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+    out = measure()
+    launches[key] = {name: k.launches for name, k in KERNELS.items()}
+    return out
 
 
 def _ms(times):
@@ -137,26 +137,36 @@ def run(device, cfg: RenderConfig = CONFIG3, golden: RenderConfig = GOLDEN,
     on_card = device.type == "cuda"
     rays = cfg.rays_per_frame
     scene = default_scene(device=device)
+    launches = {}
 
-    _, fwd = render_timed(scene, cfg, warmup=1, iters=REPS)
-    _, fwd_torch = render_timed(scene, cfg, warmup=1, iters=EAGER_REPS,
-                                backend="torch")
-    fwd_device = (_event_times(lambda: render_pixels_cuda(scene, cfg), device)
-                  if on_card else None)
+    _, fwd = _counted(lambda: render_timed(scene, cfg, warmup=1, iters=REPS),
+                      launches, "fwd")
+    _, fwd_torch = _counted(lambda: render_timed(
+        scene, cfg, warmup=1, iters=EAGER_REPS, backend="torch"),
+        launches, "fwd_torch")
+    fwd_device = None
+    if on_card:
+        tables = scene_tables(scene)
+        fwd_device = _counted(lambda: _times(
+            lambda: render_pixels_cuda(scene, cfg, tables=tables),
+            Timer(device)), launches, "fwd_device")
 
     step, step_backend = train_step(scene, cfg)
     loss = float(step()[0])
     if not math.isfinite(loss):
         raise RuntimeError(f"the step's loss is {loss}")
-    step_wall = _host_times(step, device)
-    step_device = _event_times(step, device) if on_card else None
+    step_wall = _counted(lambda: _times(step, Timer()), launches, "fwd_bwd")
+    step_device = (_counted(lambda: _times(step, Timer(device)), launches,
+                            "step_device") if on_card else None)
 
     golden_step, _ = train_step(scene, golden)
-    golden_wall = _host_times(golden_step, device)
+    golden_wall = _counted(lambda: _times(golden_step, Timer()), launches,
+                           "golden_800x600_d5_fwd_bwd")
 
     s5 = random_scene(config5_spheres, seed=3, device=device)
-    _, c5 = render_timed(s5, config5, warmup=1, iters=REPS,
-                         backend="wavefront")
+    _, c5 = _counted(lambda: render_timed(s5, config5, warmup=1, iters=REPS,
+                                          backend="wavefront"),
+                     launches, "config5_1080p_d6_N256_wavefront")
 
     fwd_s = statistics.median(fwd["times"])
     fwd_bwd_s = statistics.median(step_wall)
@@ -183,7 +193,7 @@ def run(device, cfg: RenderConfig = CONFIG3, golden: RenderConfig = GOLDEN,
         "step_device_ms": step_device_ms,
         "step_device_mrays_per_s": step_device_mrays,
         "device": torch.cuda.get_device_name(device) if on_card else str(device),
-        "power_limit": (nvidia_smi_line().rsplit(",", 1)[1].strip()
+        "power_limit": (nvidia_smi_line(device).rsplit(",", 1)[1].strip()
                         if on_card else None),
         "backend": device.type,
         "width": cfg.width, "height": cfg.height, "depth": cfg.max_depth,
@@ -195,6 +205,7 @@ def run(device, cfg: RenderConfig = CONFIG3, golden: RenderConfig = GOLDEN,
         "step_device_times_ms": _ms(step_device) if on_card else None,
         "golden_800x600_d5_fwd_bwd_times_ms": _ms(golden_wall),
         "config5_1080p_d6_N256_wavefront_times_ms": _ms(c5["times"]),
+        "launches": launches,
     }
 
 

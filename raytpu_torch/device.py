@@ -27,14 +27,20 @@ def resolve_device(device) -> torch.device:
     return local_device() if device is None else torch.device(device)
 
 
-def nvidia_smi_line() -> str:
-    """The first card's name and power limit, as `nvidia-smi
+def nvidia_smi_line(device) -> str:
+    """The CUDA `device`'s name and power limit, as `nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader` prints them (e.g.
-    "NVIDIA H100 80GB HBM3, 700.00 W").  Raises RuntimeError if nvidia-smi
-    fails."""
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+    "NVIDIA H100 80GB HBM3, 700.00 W"), its row found by the card's UUID
+    (CUDA_VISIBLE_DEVICES may renumber the cards).  Raises RuntimeError if
+    nvidia-smi fails or does not list the device."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=uuid,name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     if res.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {res.stderr}")
-    return res.stdout.strip().splitlines()[0]
+    uuid = str(torch.cuda.get_device_properties(device).uuid).lower()
+    for row in res.stdout.strip().splitlines():
+        card, line = row.split(",", 1)
+        if card.strip().lower().removeprefix("gpu-") == uuid.removeprefix("gpu-"):
+            return line.strip()
+    raise RuntimeError(f"nvidia-smi lists no card of UUID {uuid}: {res.stdout}")

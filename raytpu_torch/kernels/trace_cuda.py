@@ -104,13 +104,11 @@ class CudaKernel:
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
 
-    def build(self, force: bool = False) -> float:
+    def build(self) -> float:
         """Compile the source with nvcc unless the library for this exact
-        source is already built (or `force`); returns the seconds spent
-        compiling.  A library already loaded in this process stays
-        loaded."""
+        source is already built; returns the seconds spent compiling."""
         path = self.library_path()
-        if path.exists() and not force:
+        if path.exists():
             return 0.0
         from torch.utils.cpp_extension import CUDA_HOME
 

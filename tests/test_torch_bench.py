@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ import raytpu_torch.scene as tscene
 from raytpu_torch import bench
 from raytpu_torch.render import render_timed
 from raytpu_torch.utils.profiling import Timer
+from test_torch_grad import assert_grads_match
 
 torch.set_num_threads(2)
 
@@ -124,15 +126,34 @@ def test_hit_sq_dist_matches_raytpus():
                                rtol=1e-6)
 
 
+def test_nvidia_smi_line_names_the_given_card(monkeypatch):
+    """On a machine of several cards the line is the given card's, found
+    by its UUID, not the first card's."""
+    import types
+
+    import raytpu_torch.device as device_mod
+
+    rows = ("GPU-aaaa-0000, NVIDIA H100 80GB HBM3, 700.00 W\n"
+            "GPU-BBBB-1111, NVIDIA H100 80GB HBM3, 500.00 W\n")
+    monkeypatch.setattr(device_mod.subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(returncode=0, stdout=rows, stderr=""))
+    monkeypatch.setattr(device_mod.torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(uuid=f"{d}-1111"))
+    assert device_mod.nvidia_smi_line("bbbb") == "NVIDIA H100 80GB HBM3, 500.00 W"
+    with pytest.raises(RuntimeError, match="no card of UUID"):
+        device_mod.nvidia_smi_line("cccc")
+
+
 def test_bench_without_a_card_prints_the_failure_line():
     """`python -m raytpu_torch.bench` without a card: one line, no value,
-    exit 1; the CPU is not measured in the card's place.  Importing it
-    loads neither jax nor raytpu."""
+    exit 1; the CPU is not measured in the card's place.  The run imports
+    neither jax nor raytpu (-X importtime lists every module imported)."""
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA device")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-m", "raytpu_torch.bench"], cwd=ROOT,
-                         env=env, capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                          "raytpu_torch.bench"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     lines = res.stdout.strip().splitlines()
     assert len(lines) == 1, res.stdout
@@ -140,13 +161,11 @@ def test_bench_without_a_card_prints_the_failure_line():
     assert line == {"metric": "Mrays/s/chip fwd+bwd 640x480 depth-4 (device step)",
                     "value": None, "unit": "Mrays/s", "vs_baseline": None,
                     "error": "no CUDA device"}
-    code = ("import sys, raytpu_torch.bench; "
-            "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'raytpu')); "
-            "print(bad); sys.exit(1 if bad else 0)")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stdout + res.stderr
+    imported = {row.rsplit("|", 1)[1].strip() for row in res.stderr.splitlines()
+                if row.startswith("import time:") and "|" in row}
+    assert {"torch", "raytpu_torch.render"} <= imported
+    bad = sorted(m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "raytpu"))
+    assert not bad, bad
 
 
 def test_bench_run_on_the_cpu_has_bench_pys_keys():
@@ -177,21 +196,43 @@ def test_bench_run_on_the_cpu_has_bench_pys_keys():
         np.median(line["fwd_bwd_times_ms"]))
     assert line["wall_fwd_bwd_mrays_per_s"] == pytest.approx(
         cfg.rays_per_frame / line["fwd_bwd_seconds"] / 1e6)
+    # Each timed key's kernel launches: none on the CPU, where every
+    # wrapper runs its plain version.
+    assert line["launches"] == {
+        key: dict.fromkeys(bench.KERNELS, 0)
+        for key in ("fwd", "fwd_torch", "fwd_bwd", "golden_800x600_d5_fwd_bwd",
+                    "config5_1080p_d6_N256_wavefront")}
+
+
+def bench_step_against_raytpu(tscene_, jscene_, cfg):
+    """The step the bench times (loss_and_grad, "auto", zero target) and
+    raytpu's jitted loss_and_grad on the same scene: the loss within rtol
+    1e-5, the gradients leaf by leaf as tests/test_torch_grad.py holds
+    them."""
+    step, backend = bench.train_step(tscene_, tconfig.RenderConfig(**cfg))
+    loss, grads = step()
+    want, want_grads = jgrad.loss_and_grad(
+        jscene_, jconfig.RenderConfig(**cfg),
+        jnp.zeros((cfg["width"] * cfg["height"], 3), jnp.float32))
+    assert backend == "torch"
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    assert_grads_match([t.detach().numpy() for t in tscene.scene_leaves(grads)],
+                       jax.tree_util.tree_leaves(want_grads))
 
 
 def test_the_benchs_step_gives_raytpus_loss():
-    """The step the bench times (loss_and_grad, "auto", zero target)
-    against raytpu's jitted loss_and_grad on the same scene, rtol 1e-5.
-    The single-sphere frame, as tests/test_torch_grad.py's loss test: on
-    the default scene XLA:CPU's contracted multiply-adds flip 2 of the 192
-    pixels at this size (loss 1.6e-3 apart), while raytpu run op by op
-    (jax.disable_jit, 18-36 s here) gives the port's loss within 1e-7."""
-    cfg = tconfig.RenderConfig(**TINY)
-    step, backend = bench.train_step(tscene.single_sphere_scene(device="cpu"), cfg)
-    loss, grads = step()
-    want, _ = jgrad.loss_and_grad(jscene.single_sphere_scene(),
-                                  jconfig.RenderConfig(**TINY),
-                                  jnp.zeros((cfg.num_pixels, 3), jnp.float32))
-    assert backend == "torch"
-    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
-    assert all(bool(torch.isfinite(t).all()) for t in tscene.scene_leaves(grads))
+    """The bench's step on the single-sphere frame, as
+    tests/test_torch_grad.py's loss test."""
+    bench_step_against_raytpu(tscene.single_sphere_scene(device="cpu"),
+                              jscene.single_sphere_scene(), TINY)
+
+
+def test_the_benchs_step_on_the_default_scene_gives_raytpus_loss():
+    """The bench's step on the scene the bench times, at 10x8 d2.  At the
+    16x12 of TINY, XLA:CPU's contracted multiply-adds in jitted raytpu
+    flip 2 of the 192 pixels across a shading edge (losses 1.6e-3 apart),
+    while raytpu run op by op (jax.disable_jit, tens of seconds on a CPU)
+    gives the port's loss within 1e-7; at 10x8 no pixel flips."""
+    bench_step_against_raytpu(tscene.default_scene(device="cpu"),
+                              jscene.default_scene(),
+                              dict(TINY, width=10, height=8))

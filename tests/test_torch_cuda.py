@@ -952,7 +952,17 @@ def test_bench_and_its_timing_on_the_card(dev):
     assert line["config5_dropped_rays"] == 0
     assert line["device"] == torch.cuda.get_device_name(dev)
     assert line["power_limit"].endswith("W")
+    calls = bench.REPS + 1
+    for key in ("fwd_bwd", "step_device", "golden_800x600_d5_fwd_bwd"):
+        assert line["launches"][key] == {"trace_fwd": calls, "trace_bwd": calls,
+                                         "wf_level": 0, "wf_compact": 0}, key
+    c5 = line["launches"]["config5_1080p_d6_N256_wavefront"]
+    assert c5["wf_level"] > 0 and c5["wf_compact"] > 0 and c5["trace_fwd"] == 0
     json.dumps(line)
+    host = Timer()
+    with host.section("k1") as box:
+        box["value"] = render_pixels_cuda(default_scene(device=dev), cfg)
+    assert host.device.type == "cpu" and host.summary()["k1"] > 0
     timer = Timer(dev)
     with timer.section("k1"):
         render_pixels_cuda(default_scene(device=dev), cfg)

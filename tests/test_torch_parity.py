@@ -66,10 +66,13 @@ COUNTERPARTS = {
         "raytpu_torch.kernels.wavefront.render_image_wavefront",
     "raytpu.kernels.wavefront.render_pixels_wavefront":
         "raytpu_torch.kernels.wavefront.render_pixels_wavefront",
-    # The oracle kernel is built at first use (CudaKernel.build, by nvcc,
-    # `force` as raytpu's); raytpu's build_library builds its host oracle
-    # with g++.
-    "raytpu.native.build_library": "raytpu_torch.native.ORACLE.build",
+    # raytpu's build_library builds its host oracle with g++, again when
+    # stale or on `force`.  The port builds each kernel's source, the
+    # oracle's too (native.ORACLE), with nvcc at first use, into a library
+    # named by a hash of its sources and flags: no library is ever stale,
+    # so there is nothing to force.
+    "raytpu.native.build_library": ("raytpu_torch.kernels.trace_cuda.CudaKernel",
+                                    "source"),
     "raytpu.native.render_native": "raytpu_torch.native.render_native",
     # Process-wide setters in raytpu; arguments of render_native here.
     "raytpu.native.set_approx_mask": ("raytpu_torch.native.render_native", "approx_mask"),
