@@ -90,7 +90,9 @@ result lines):
  14. the wavefront training path: raytpu_torch.grad.fit_scene at config 5
      with backend="wavefront", 3 steps of matte and light colours from the
      fit example's perturbation, counting K3, K4, K5 and K6 launches (chunks
-     x 7, chunks x 7, chunks x 6 x 2, chunks x 6 per step tried), no dropped
+     x 7, chunks x 7, chunks x 6 x 2, chunks x 6 per step tried, K3's and
+     K5's twice over where a step has more than one chunk: each chunk is
+     checkpointed and its backward re-runs its forward), no dropped
      ray, the loss falling or holding, and the first step's loss and
      gradient against the kernel pair's (tests/test_wavefront.py:196-219's
      contract); then the fit example with --backend wavefront at config 3;
@@ -164,8 +166,27 @@ result lines):
      dropped ray at config 5, and each timed key's launches those of its
      path: one K1 a forward, one K1 and one K2 a step, K3 and K5 and no
      K1 at config 5; its line is printed on a phase line.
+ 21. the wavefront's chunk loop at config 5's scene (random_scene(256,
+     seed=3), depth 6, 3x3): (a) render_pixels_wavefront's 1920x1080 frame
+     at streams 1, 2 and 4 (chunk c on CUDA side stream c % streams), no
+     drop, each frame bit for bit streams=1's (within 1e-6 x max |frame| if
+     streams=1 differs from itself: index_add_'s atomics), timed in turns
+     (median of 5 after 1 warm-up, CUDA events) with each setting's peak
+     memory (allocated, and reserved from an emptied cache: each side
+     stream caches blocks of its own) and its summed kernel time over its
+     wall time under torch.profiler (above 1 where kernels overlap); (b)
+     the 1920x1080 training step through loss_and_grad_sharded (each of its
+     chunks checkpointed) at streams 1 and 2, no drop, loss and leaves
+     against K1 + K2 under phase 14's bound, timed in turns (median of 3
+     after 1 warm-up) with its peak memory, beside the figures of the
+     step that kept every chunk's residuals;
+     (c) one 7680x4320 training step after 1 warm-up: no drop, a finite
+     loss, a peak of at most 16 GiB, loss and leaves against one K1 + K2
+     step under the same bound.  K3, K4, K5 and K6 must launch; their
+     launches go into the kernels line's counts.
 K1's and K2's launches in the kernels line are phase 7's and phase 19's
-summed, each path's count beside them in "launches_by_path".
+summed, K3's and K5's phase 11's and phase 21's, K4's and K6's phase 14's
+and phase 21's, each path's count beside them in "launches_by_path".
 The last three lines are nvidia-smi's, the kernels JSON and
 {"ok": true, "device": ...}.
 """
@@ -1190,8 +1211,11 @@ def training_phases(dev):
     chunks = [wavefront_sizes(c5, kw["chunk_rays"], kw["capacity_factor"])[3]
               for _, _, kw in calls]
     levels = c5.max_depth + 1
-    check((l3, l4, l5, l6) == (sum(chunks) * levels, sum(chunks) * levels,
-                               sum(chunks) * (levels - 1) * 2,
+    # A step of more than one chunk checkpoints each: its backward re-runs
+    # the chunk's K3 and K5.
+    fwd = sum(n * (2 if n > 1 else 1) for n in chunks)
+    check((l3, l4, l5, l6) == (fwd * levels, sum(chunks) * levels,
+                               fwd * (levels - 1) * 2,
                                sum(chunks) * (levels - 1)),
           f"launches K3 {l3} K4 {l4} K5 {l5} K6 {l6} for {len(calls)} steps of "
           f"{chunks} chunks")
@@ -2215,6 +2239,221 @@ def packed_phase(dev, smi):
     return launches, out
 
 
+def chunks_phase(dev, smi) -> dict:
+    """Phase 21: the wavefront's chunk loop at config 5's scene
+    (random_scene(256, seed=3), depth 6, 3x3): (a) the 1920x1080 frame at
+    streams 1, 2 and 4 against streams=1's, timed in turns; (b) the
+    1920x1080 training step, each chunk checkpointed, at streams 1 and 2
+    against K1 + K2, timed in turns with its peak memory; (c) one
+    7680x4320 training step against K1 + K2, with its time and peak.
+    Returns each wavefront kernel's launches over the phase and its
+    numbers."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import raytpu_torch.grad as grad
+    import raytpu_torch.render as render
+    from raytpu_torch.config import BENCH_CONFIGS, RenderConfig
+    from raytpu_torch.examples.fit_scene import perturb
+    from raytpu_torch.kernels.trace_cuda import render_pixels_cuda
+    from raytpu_torch.kernels.wavefront import (WF_COMPACT, WF_LEVEL,
+                                                WF_LEVEL_BWD, WF_UNCOMPACT,
+                                                render_pixels_wavefront,
+                                                wavefront_sizes)
+    from raytpu_torch.parallel.mesh import Mesh
+    from raytpu_torch.scene import LEAF_NAMES, random_scene, scene_leaves
+
+    kernels = (WF_LEVEL, WF_LEVEL_BWD, WF_COMPACT, WF_UNCOMPACT)
+    for k in kernels:
+        k.launches = 0
+    c5 = BENCH_CONFIGS["config5"]
+    truth = random_scene(256, seed=3, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": smi}
+    gib = lambda b: b / 2**30  # noqa: E731
+
+    def measured(fn):
+        """(ms between CUDA events, peak GiB, fn()) of one call."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), gib(torch.cuda.max_memory_allocated(dev)), res
+
+    def reserved(fn):
+        """The most memory the caching allocator held during one call of
+        fn, in GiB, from an emptied cache: a side stream keeps blocks of its
+        own, which max_memory_allocated does not show."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize(dev)
+        return gib(torch.cuda.max_memory_reserved(dev))
+
+    # (a) The forward frame at streams 1, 2 and 4.
+    opts = dict(chunk_rays=render.WF_AUTO_CHUNK, capacity_factor=render.WF_AUTO_LADDER[0])
+    n_chunks = wavefront_sizes(c5, **opts)[3]
+
+    def frame(streams):
+        return render_pixels_wavefront(truth, c5, return_info=True, streams=streams,
+                                       **opts)
+
+    ref, info = frame(1)
+    again, _ = frame(1)
+    torch.cuda.synchronize(dev)
+    scale = float(ref.abs().max())
+    self_diff = float((again - ref).abs().max())
+    exact = self_diff == 0.0
+    check(int(info["dropped"]) == 0, f"streams=1 dropped {int(info['dropped'])}")
+    check(self_diff <= 1e-6 * scale, f"streams=1 against itself: {self_diff} "
+          f"(scale {scale})")
+    if not exact:
+        print(f"phase 21: streams=1 differs from itself by {self_diff:.3e} "
+              f"({self_diff / scale:.3e} x max |frame|; index_add_'s atomics): "
+              f"each setting is held to 1e-6 x max |frame|, not bit for bit")
+    diffs = {}
+    for streams in (2, 4):
+        img, i = frame(streams)
+        torch.cuda.synchronize(dev)
+        d = float((img - ref).abs().max())
+        check(int(i["dropped"]) == 0, f"streams={streams} dropped {int(i['dropped'])}")
+        check(d == 0.0 if exact else d <= 1e-6 * scale,
+              f"streams={streams}: max |frame - streams=1's| = {d} (scale {scale})")
+        diffs[streams] = d
+    del img, again
+    times = {s: [] for s in (1, 2, 4)}
+    peaks = dict.fromkeys(times, 0.0)
+    for s in times:
+        frame(s)  # warm-up
+    for _ in range(5):
+        for s in times:
+            ms, peak, _ = measured(lambda: frame(s))
+            times[s].append(ms)
+            peaks[s] = max(peaks[s], peak)
+    fwd = {s: float(np.median(t)) for s, t in times.items()}
+    rsv = {s: reserved(lambda: frame(s)) for s in times}
+    # Kernels running at once on several streams sum to more device time
+    # than the frame's wall time between events.
+    overlap = {}
+    for s in times:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ms, _ = events_ms(lambda: frame(s), reps=1, warmup=0)
+        groups = device_breakdown(prof)
+        overlap[s] = None if groups is None else sum(groups.values()) / ms
+    out["forward"] = {"chunks": n_chunks, "opts": opts, "ms": fwd, "times_ms": times,
+                      "peak_gib": peaks, "reserved_gib": rsv,
+                      "kernel_time_over_wall": overlap,
+                      "max_abs_vs_streams1": diffs, "streams1_self_diff": self_diff}
+    print(f"phase 21 ({smi}): config5 1920x1080 d6 a3 frame, {n_chunks} chunks "
+          f"at {opts}: streams 1 {fwd[1]:.3f} ms, 2 {fwd[2]:.3f} ms "
+          f"({fwd[2] / fwd[1]:.3f}x), 4 {fwd[4]:.3f} ms ({fwd[4] / fwd[1]:.3f}x) "
+          f"(median of 5 in turns after 1 warm-up); peak "
+          + ", ".join(f"{s}: {p:.2f} GiB" for s, p in peaks.items())
+          + " allocated, " + ", ".join(f"{s}: {p:.2f} GiB" for s, p in rsv.items())
+          + " reserved; summed kernel time / wall time under torch.profiler "
+          + ", ".join(f"{s}: " + ("not measured" if v is None else f"{v:.3f}")
+                      for s, v in overlap.items())
+          + f"; 0 dropped; {'bit-identical to' if exact else 'within 1e-6 x max of'} "
+          f"streams=1's frame")
+
+    # (b) The 1920x1080 training step against K1 + K2.
+    start = perturb(truth, geometry=False)
+    train = dict(chunk_rays=render.WF_AUTO_CHUNK_TRAIN,
+                 capacity_factor=render.WF_AUTO_LADDER_TRAIN[0])
+    one = Mesh(0, 1, dev)
+
+    def held(cfg, target, steps):
+        """Each wavefront step's loss and leaves against one K1 + K2 step
+        (phase 14's bound); returns the worst loss's relative difference and
+        the worst leaf's max |diff| / scale."""
+        loss_k, grads_k = grad.loss_and_grad(start, cfg, target, backend="cuda")
+        worst = worst_rel = 0.0
+        for streams, (loss_w, grads_w, info) in steps.items():
+            check(info["dropped"] == 0, f"streams={streams}: dropped {info['dropped']}")
+            rel = abs(float(loss_w) - float(loss_k)) / abs(float(loss_k))
+            worst_rel = max(worst_rel, rel)
+            check(np.isfinite(float(loss_w)) and rel <= 1e-5,
+                  f"{cfg.width}x{cfg.height} streams={streams}: loss {float(loss_w)} "
+                  f"vs K1 + K2 {float(loss_k)}")
+            for name, a, b in zip(LEAF_NAMES, scene_leaves(grads_w),
+                                  scene_leaves(grads_k)):
+                frac = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                check(np.isfinite(frac) and frac <= 2e-3,
+                      f"{cfg.width}x{cfg.height} streams={streams} {name}: "
+                      f"max |wf - K2| = {frac} x scale")
+                worst = max(worst, frac)
+        return worst_rel, worst
+
+    def step(cfg, target, streams):
+        return grad.loss_and_grad_sharded(start, cfg, target, one, "wavefront",
+                                          wf_opts=dict(train, streams=streams),
+                                          return_info=True)
+
+    target = render_pixels_cuda(truth, c5)
+    steps = {s: step(c5, target, s) for s in (1, 2)}
+    rel, worst = held(c5, target, steps)
+    del steps
+    times = {1: [], 2: []}
+    peaks = dict.fromkeys(times, 0.0)
+    for _ in range(4):  # the first round is the warm-up
+        for s in times:
+            ms, peak, _ = measured(lambda: step(c5, target, s))
+            times[s].append(ms)
+            peaks[s] = max(peaks[s], peak)
+    train_ms = {s: float(np.median(t[1:])) for s, t in times.items()}
+    rsv = {s: reserved(lambda: step(c5, target, s)) for s in times}
+    out["step_1080p"] = {"chunks": wavefront_sizes(c5, **train)[3], "opts": train,
+                         "ms": train_ms, "times_ms": times, "peak_gib": peaks,
+                         "reserved_gib": rsv,
+                         "loss_rel": rel, "worst_leaf": worst}
+    print(f"phase 21 ({smi}): config5 1920x1080 training step, "
+          f"{out['step_1080p']['chunks']} checkpointed chunks at {train}: streams 1 "
+          f"{train_ms[1]:.3f} ms, 2 {train_ms[2]:.3f} ms ({train_ms[2] / train_ms[1]:.3f}x) "
+          f"(median of 3 in turns after 1 warm-up); peak {peaks[1]:.2f} and "
+          f"{peaks[2]:.2f} GiB allocated, {rsv[1]:.2f} and {rsv[2]:.2f} GiB "
+          f"reserved; against K1 + K2 loss rel {rel:.2e} (<= 1e-5), "
+          f"worst leaf {worst:.2e} x scale (<= 2e-3); the step that kept every "
+          f"chunk's residuals: 167.912 ms, 12.05 GiB (NVIDIA H100 80GB HBM3, "
+          f"700.00 W)")
+    del target
+
+    # (c) One 7680x4320 training step.
+    c8k = RenderConfig(width=7680, height=4320, max_depth=c5.max_depth,
+                       alias_factor=c5.alias_factor)
+    gc.collect()
+    torch.cuda.empty_cache()
+    target = render_pixels_cuda(truth, c8k)
+    step(c8k, target, 1)  # warm-up
+    held_gib = gib(torch.cuda.memory_allocated(dev))
+    ms, peak, res = measured(lambda: step(c8k, target, 1))
+    check(np.isfinite(float(res[0])) and res[2]["dropped"] == 0,
+          f"8K step: loss {float(res[0])}, dropped {res[2]['dropped']}")
+    check(peak <= 16.0, f"8K step peak {peak:.2f} GiB > 16")
+    rel8, worst8 = held(c8k, target, {1: res})
+    out["step_8k"] = {"chunks": wavefront_sizes(c8k, **train)[3], "ms": ms,
+                      "peak_gib": peak, "held_before_gib": held_gib,
+                      "loss_rel": rel8, "worst_leaf": worst8}
+    print(f"phase 21 ({smi}): 7680x4320 d6 a3 training step, "
+          f"{out['step_8k']['chunks']} checkpointed chunks: {ms:.3f} ms (one step "
+          f"after 1 warm-up), peak {peak:.2f} GiB (<= 16; {held_gib:.2f} GiB held "
+          f"before it); 0 dropped; against K1 + K2 loss rel {rel8:.2e} (<= 1e-5), "
+          f"worst leaf {worst8:.2e} x scale (<= 2e-3)")
+    del target, res
+    torch.cuda.synchronize(dev)
+    out["launches"] = {k.name: k.launches for k in kernels}
+    check(all(n > 0 for n in out["launches"].values()),
+          f"phase 21 launched {out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2583,6 +2822,16 @@ def main() -> int:
     oracle_launches, oracle_times = oracle_phase(dev, oracle_host_fn)
     (packed_fwd, packed_bwd), packed = packed_phase(dev, smi)
     bench_line = bench_phase(dev)
+    chunks = chunks_phase(dev, smi)
+    # The wavefront kernels' launches: their main path's (the CLI's frame,
+    # phase 11, for K3 and K5; the config-5 fit, phase 14, for K4 and K6)
+    # and phase 21's chunk loop.
+    for entry, kname, path in ((k3, "wf_level", "cli"), (k5, "wf_compact", "cli"),
+                               (k4, "wf_level_bwd", "fit"),
+                               (k6, "wf_uncompact", "fit")):
+        entry["launches_by_path"] = {path: entry["launches"],
+                                     "chunks": chunks["launches"][kname]}
+        entry["launches"] += chunks["launches"][kname]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
@@ -2628,6 +2877,7 @@ def main() -> int:
                         "launches": oracle_launches}))
     print("phase 19: packed-tile step and culling " + json.dumps(packed))
     print("phase 20: bench " + json.dumps(bench_line))
+    print("phase 21: chunk loop " + json.dumps(chunks))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -7,6 +7,8 @@ Examples:
   python -m raytpu_torch.cli --scene random --num-spheres 256 --seed 3 \
       --width 1920 --height 1080 --max-depth 6 --backend wavefront \
       --strict-drops -o config5.ppm           # BASELINE config 5
+  python -m raytpu_torch.cli --backend wavefront --streams 2 -o out.ppm
+                                           # chunks on 2 CUDA streams
   python -m raytpu_torch.cli --compare a.ppm b.ppm
   python -m raytpu_torch.cli --list-devices
   python -m torch.distributed.run --nproc-per-node 2 -m raytpu_torch.cli \
@@ -44,13 +46,6 @@ import torch.distributed as dist
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.parallel.mesh import (describe_devices, initialize_distributed,
                                         local_device, make_mesh)
-
-# Flags of raytpu.cli whose path the port does not have.
-_NOT_PORTED = {
-    "streams": "--streams: measured neutral on the TPU, not ported (ROADMAP "
-               "Queue 1, 'Not to port')",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="raytpu-torch", description=__doc__,
@@ -95,6 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strict-drops", action="store_true",
                    help="exit 3 if the wavefront drops any live ray, "
                         "instead of warning")
+    p.add_argument("--streams", type=int, default=None,
+                   help="wavefront: independent chunk pipelines, chunk c on "
+                        "CUDA stream c %% streams (default 1)")
     p.add_argument("--oracle", action="store_true",
                    help="render with the strict-semantics oracle (the oracle "
                         "kernel; the tensor oracle under --cpu)")
@@ -123,8 +121,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--interleave", action="store_true",
                    help="with --sharded: give each rank the strided pixel set "
                         "{rank + j*ranks} instead of a contiguous block")
-    # Accepted so that raytpu's command lines fail with a clear message.
-    p.add_argument("--streams", type=int, default=None, help=argparse.SUPPRESS)
     return p
 
 
@@ -175,11 +171,6 @@ def main(argv=None) -> int:
         stats = compare_ppms(*args.compare)
         print(json.dumps(stats))
         return 2 if "error" in stats else 0
-
-    for dest, message in _NOT_PORTED.items():
-        if getattr(args, dest) not in (None, False):
-            print(f"error: {message}", file=sys.stderr)
-            return 2
 
     if args.list_devices:
         print(describe_devices())
@@ -239,7 +230,8 @@ def _render(args, device) -> int:
     from raytpu_torch.render import (DroppedRaysError, render_sharded,
                                      render_single, render_timed)
     wf_opts = {k: v for k, v in (("chunk_rays", args.chunk_rays),
-                                 ("capacity_factor", args.capacity_factor))
+                                 ("capacity_factor", args.capacity_factor),
+                                 ("streams", args.streams))
                if v is not None}
     on_drop = "raise" if args.strict_drops else "warn"
     try:

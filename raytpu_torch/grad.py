@@ -232,7 +232,7 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
     wavefront's drop count in one buffer (none in a world of one).  A
     dropped live ray biases the gradient, so the summed count is reported
     per `on_drop` ("raise" by default) on every rank alike.  `wf_opts`
-    (chunk_rays, capacity_factor) tune the wavefront."""
+    (chunk_rays, capacity_factor, streams) tune the wavefront."""
     mesh = make_mesh(scene.device) if mesh is None else mesh
     p = cfg.num_pixels
     if p % mesh.size:
@@ -281,7 +281,8 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
     resolve_train_backend.
 
     The wavefront reads every step's drop count.  Without a
-    capacity_factor in `wf_opts` (chunk_rays, capacity_factor) it climbs the training ladder (render.WF_AUTO_LADDER_TRAIN): a step
+    capacity_factor in `wf_opts` (chunk_rays, capacity_factor, streams) it
+    climbs the training ladder (render.WF_AUTO_LADDER_TRAIN): a step
     that drops is discarded and re-run at the next capacity (the step is
     stateless, so the retry is exact), and the fit stays at that capacity.
     Drops left at the top of the ladder, or at an explicit capacity, go

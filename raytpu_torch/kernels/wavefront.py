@@ -56,8 +56,19 @@ is: raytpu's _segsum_scatter, _scatter_window, _unstripe,
 _scatter_emissions and _dup_tilewise exist because a TPU pays ~3 ns per
 scattered element and pads a narrow minor axis to 128 lanes; a GPU's
 index_add_ scatters with atomics in L2 and a strided slice is a view.
-`compact_mode`, `streams` and `interpret` have no counterpart (one
-compaction; streams measured neutral on the TPU; no Pallas interpreter).
+`compact_mode` and `interpret` have no counterpart (one compaction; no
+Pallas interpreter).
+
+The chunk loop is raytpu's scan over `trace_stream`: one function of the
+scene tables and the chunk index returns the chunk's slot window and its
+drop count, and the strided write into the frame stays outside it.  Under
+autograd a frame of more than one chunk runs each chunk through
+torch.utils.checkpoint (raytpu's jax.checkpoint of its scan body), so the
+backward re-runs the chunk's forward (K3 and K5 twice a chunk in a
+training step) and live memory holds one chunk's residuals, whatever the
+frame size.  `streams` > 1 runs chunk c on CUDA side stream c % streams,
+so that one chunk's deep, sparse levels can share the card with another's
+(on a TPU, which runs one kernel at a time, the knob measured neutral).
 
 A scene on the CPU runs each kernel's plain version (`wf_level_torch`,
 `compact_torch`, `wf_level_bwd_torch`, `uncompact_torch`); a scene on a
@@ -68,10 +79,12 @@ K3 and K4 read a scene table too large for shared memory in place.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels.bvh import Bvh, build_bvh
@@ -527,46 +540,49 @@ class WfLevelFn(torch.autograd.Function):
     (wf_level_bwd), the counterpart of raytpu's _wf_level_ad.  The tensor
     inputs are the three scene tables and the state, so that autograd
     routes the table gradients through scene_tables to the scene leaves.
-    It saves its inputs and K3's selections (12 bytes a ray at L <= 32);
-    the tables and the BVH are the frame's, shared by every level."""
+    It saves its inputs and K3's selections (12 bytes a ray at L <= 32),
+    all through save_for_backward, so that a checkpointed chunk frees and
+    recomputes them; the tables and the BVH are the frame's, shared by
+    every level."""
 
     @staticmethod
     def forward(ctx, scene, spawn, bvh, spheres_tbl, lights_tbl, bg_tbl, state):
         ctx.scene, ctx.spawn = scene, spawn
-        em, children, ctx.sel = wf_level(scene, state, spawn,
-                                         (spheres_tbl, lights_tbl, bg_tbl), bvh,
-                                         return_sel=True)
-        ctx.save_for_backward(spheres_tbl, lights_tbl, bg_tbl, state)
+        em, children, sel = wf_level(scene, state, spawn,
+                                     (spheres_tbl, lights_tbl, bg_tbl), bvh,
+                                     return_sel=True)
+        ctx.save_for_backward(spheres_tbl, lights_tbl, bg_tbl, state, sel)
         return (em, children) if spawn else em
 
     @staticmethod
     def backward(ctx, em_ct, ch_ct=None):
-        *tables, state = ctx.saved_tensors
+        *tables, state, sel = ctx.saved_tensors
         d_state, *grads = wf_level_bwd(
             ctx.scene, state, em_ct.contiguous(),
             ch_ct.contiguous() if ctx.spawn else None, ctx.spawn,
-            tuple(tables), need_state=ctx.needs_input_grad[6], sel=ctx.sel)
+            tuple(tables), need_state=ctx.needs_input_grad[6], sel=sel)
         return (None, None, None, *grads, d_state)
 
 
 class CompactFn(torch.autograd.Function):
     """The compaction, differentiable: forward K5 with its destination
     index, backward K6 (uncompact), the counterpart of raytpu's
-    _compact_blocked_ad.  It keeps the destination index, 4 bytes a
-    child, and the capacity."""
+    _compact_blocked_ad.  It saves the destination index, 4 bytes a
+    child, through save_for_backward, and keeps the capacity."""
 
     @staticmethod
     def forward(ctx, children, pid, cap, n_slots):
-        state, out_pid, dropped, n_kept, ctx.dst = compact(
+        state, out_pid, dropped, n_kept, dst = compact(
             children, pid, cap, n_slots, return_dst=True)
+        ctx.save_for_backward(dst)
         ctx.cap = cap
         ctx.mark_non_differentiable(out_pid, dropped, n_kept)
         return state, out_pid, dropped, n_kept
 
     @staticmethod
     def backward(ctx, d_state, *_):
-        return (uncompact(d_state.contiguous(), ctx.dst, ctx.cap), None, None,
-                None)
+        (dst,) = ctx.saved_tensors
+        return (uncompact(d_state.contiguous(), dst, ctx.cap), None, None, None)
 
 
 # --------------------------------------------------------------------------
@@ -623,10 +639,32 @@ def chunk_camera_state(cfg: RenderConfig, chunk: int, n_chunks: int, c: int,
     return state, k.to(torch.int32)
 
 
+def _on(stream):
+    """Enter a CUDA stream, or nothing for None (the CPU)."""
+    return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
+
+
+# Each device's side streams, made at first use and kept: the caching
+# allocator reuses a freed block only on the stream it was allocated on, and
+# torch.cuda.Stream() hands out its pool's 32 streams in turn, so streams
+# made anew each call would cache a chunk's working set once per pool
+# stream.
+_SIDE_STREAMS: dict[int, list] = {}
+
+
+def _side_streams(device, n: int) -> list:
+    """n side streams of a CUDA device, the same ones on every call."""
+    have = _SIDE_STREAMS.setdefault(device.index or 0, [])
+    while len(have) < n:
+        have.append(torch.cuda.Stream(device))
+    return have[:n]
+
+
 def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
                             capacity_factor=2, eager_sort: bool = True,
                             return_info: bool = False, offset: int = 0,
-                            count: int | None = None, shard_stride: int = 1):
+                            count: int | None = None, streams: int = 1,
+                            shard_stride: int = 1):
     """Wavefront render of the `count` frame pixels
     {offset + j*shard_stride : j < count}, clamped to P-1 -> (count, 3)
     linear colour (the full frame by default).
@@ -635,60 +673,101 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
     `capacity_factor` x chunk is every level's live-ray capacity.
     `eager_sort` compacts at every spawning level; without it a level
     whose children fit the capacity passes them on uncompacted (dead ones
-    included).  With `return_info` it also returns {'dropped': 0-d int64
-    tensor on the scene's device}, the live rays lost to capacity, summed
-    over the frame on the device.
+    included).  `streams` independent chunk pipelines: on a CUDA scene
+    with streams > 1, chunk c runs on the device's side stream c % streams
+    (streams=1 runs on the current stream); on the CPU it changes nothing
+    in the frame.  With `return_info` it also returns {'dropped': 0-d
+    int64 tensor on the scene's device}, the live rays lost to capacity,
+    summed over the frame on the device.
 
     When grad is enabled and a scene leaf requires grad, the frame is
     differentiable: levels run as WfLevelFn (K3 forward, K4 backward) and
-    compactions as CompactFn (K5, K6 backward).  A dropped ray then takes
-    no gradient: the caller enforces the counter."""
+    compactions as CompactFn (K5, K6 backward).  A frame of more than one
+    chunk then checkpoints each chunk: the backward re-runs its forward, so
+    autograd holds no finished chunk's per-level residuals.  A dropped ray
+    takes no gradient: the caller enforces the counter, which counts the
+    forward's drops once."""
     device = _cuda_device(scene, "render_pixels_wavefront")
     ad = torch.is_grad_enabled() and any(t.requires_grad
                                          for t in scene_leaves(scene))
-    tables = bvh = None
+    npix = cfg.num_pixels if count is None else int(count)
+    if offset < 0 or shard_stride < 1 or npix < 1 or streams < 1:
+        raise ValueError(f"need offset >= 0, shard_stride >= 1, count >= 1 and "
+                         f"streams >= 1, got offset={offset} "
+                         f"shard_stride={shard_stride} count={npix} "
+                         f"streams={streams}")
     if device.type == "cuda":
         _check_scene(scene, device, bounded=False)
-        tables = scene_tables(scene)
-        bvh = build_bvh(tables[0], tables[1])
-    elif ad:
-        tables = scene_tables(scene)
-    npix = cfg.num_pixels if count is None else int(count)
-    if offset < 0 or shard_stride < 1 or npix < 1:
-        raise ValueError(f"need offset >= 0, shard_stride >= 1 and count >= 1, "
-                         f"got offset={offset} shard_stride={shard_stride} "
-                         f"count={npix}")
+    tables = scene_tables(scene)
+    bvh = build_bvh(tables[0], tables[1]) if device.type == "cuda" else None
     spp = cfg.samples_per_pixel
     chunk, ws, cap, n_chunks = wavefront_sizes(cfg, chunk_rays, capacity_factor,
                                                npix)
+    # The chunks' streams: None for the current one (and on the CPU).
+    n_side = min(streams, n_chunks)
+    side = (_side_streams(device, n_side) if device.type == "cuda" and n_side > 1
+            else [None] * n_side)
+
+    def trace_chunk(c, *tables):
+        """Chunk c (raytpu's trace_stream): its (3, ws) window of slot sums
+        and the live rays it dropped, a 0-d int64 tensor.  It enters its
+        own stream, so that a checkpoint's recompute runs there too, and
+        keeps nothing outside what it returns and what autograd saves."""
+        with _on(side[c % len(side)]):
+            state, pid = chunk_camera_state(cfg, chunk, n_chunks, c, npix,
+                                            offset, shard_stride, device=device)
+            lost = torch.zeros((), dtype=torch.int64, device=device)
+            for level in range(cfg.max_depth + 1):
+                spawn = level < cfg.max_depth
+                if ad:
+                    out = WfLevelFn.apply(scene, spawn, bvh, *tables, state)
+                    em, children = out if spawn else (out, None)
+                else:
+                    em, children = wf_level(scene, state, spawn, tables, bvh)
+                if level == 0:
+                    accw = em.reshape(3, ws, spp).sum(dim=2)
+                else:
+                    accw.index_add_(1, pid, em)
+                if not spawn:
+                    break
+                rays = state.shape[1]
+                if 2 * rays <= cap and not eager_sort:
+                    state, pid = children, pid.repeat_interleave(2)
+                else:
+                    step = CompactFn.apply if ad else compact
+                    state, pid, n, _ = step(children, pid, min(2 * rays, cap), ws)
+                    lost = lost + n
+            return accw, lost
+
     acc = torch.zeros((3, npix), dtype=torch.float32, device=device)
-    dropped = torch.zeros((), dtype=torch.int64, device=device)
+    drops = [torch.zeros((), dtype=torch.int64, device=device) for _ in side]
+    forked = side[0] is not None
+    if forked:
+        # The side streams start after the tables, the BVH, acc and the
+        # counters exist; each of those is read or written there, so the
+        # allocator must not hand its memory on before their work ends.
+        here = torch.cuda.current_stream(device)
+        for s in side:
+            s.wait_stream(here)
+            for t in (*tables, bvh.boxes, bvh.order, acc, *drops):
+                t.record_stream(s)
     for c in range(n_chunks):
-        state, pid = chunk_camera_state(cfg, chunk, n_chunks, c, npix, offset,
-                                        shard_stride, device=device)
-        for level in range(cfg.max_depth + 1):
-            spawn = level < cfg.max_depth
-            if ad:
-                out = WfLevelFn.apply(scene, spawn, bvh, *tables, state)
-                em, children = out if spawn else (out, None)
+        s = c % len(side)
+        with _on(side[s]):
+            if ad and n_chunks > 1:
+                accw, lost = checkpoint(trace_chunk, c, *tables,
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
             else:
-                em, children = wf_level(scene, state, spawn, tables, bvh)
-            if level == 0:
-                accw = em.reshape(3, ws, spp).sum(dim=2)
-            else:
-                accw.index_add_(1, pid, em)
-            if not spawn:
-                break
-            rays = state.shape[1]
-            if 2 * rays <= cap and not eager_sort:
-                state, pid = children, pid.repeat_interleave(2)
-            else:
-                step = CompactFn.apply if ad else compact
-                state, pid, lost, _ = step(children, pid, min(2 * rays, cap), ws)
-                dropped += lost
-        # Slot k of chunk c is window pixel c + k * n_chunks.
-        mine = acc[:, c::n_chunks]
-        mine.copy_(accw[:, :mine.shape[1]])
+                accw, lost = trace_chunk(c, *tables)
+            # Slot k of chunk c is window pixel c + k * n_chunks.
+            mine = acc[:, c::n_chunks]
+            mine.copy_(accw[:, :mine.shape[1]])
+            drops[s] += lost
+    if forked:
+        for s in side:
+            here.wait_stream(s)
+    dropped = torch.stack(drops).sum()
     img = (acc * camera_constants(cfg).weight).T
     return (img, dict(dropped=dropped)) if return_info else img
 

@@ -108,10 +108,13 @@ def resolve_backend(backend: str = "auto", scene=None,
 WF_AUTO_CHUNK = 1 << 22
 WF_AUTO_LADDER = (1.0, 1.25, 2.0, 4.0)
 # The training step's (the differentiable wavefront, K3 + K5 forward, K4 +
-# K6 backward), from chip_smoke.py phase 15's sweep at config 5, factor
-# 1.0: 1M-ray chunks 495 ms a step, 2M 466, 4M 450, none dropping, peak
-# memory 8.8, 9.0 and 9.9 GiB.  The first rung never dropped there, so the
-# ladder is the forward's.
+# K6 backward, each chunk checkpointed so that its backward re-runs its K3
+# + K5 forward), from chip_smoke.py phase 15's sweep at config 5, factor
+# 1.0, on the same card: 1M-ray chunks 329.5 ms a step, 2M 298.7, 4M
+# 287.0, none dropping; the peak, one chunk's residuals, 2.38, 2.96 and
+# 4.10 GiB with the ~1.7 GiB the script held before the step (phase 21
+# reads 2.44 GiB for the 4M step alone).  The first rung never dropped
+# there, so the ladder is the forward's.
 WF_AUTO_CHUNK_TRAIN = 1 << 22
 WF_AUTO_LADDER_TRAIN = WF_AUTO_LADDER
 
@@ -165,7 +168,7 @@ def render_single(scene, cfg: RenderConfig, backend: str = "auto",
     (image, info) with `return_info`, info = {'dropped': int} and, for the
     wavefront, {'wf_opts': the options that rendered it}.
 
-    `wf_opts` (chunk_rays, capacity_factor, eager_sort) tune the
+    `wf_opts` (chunk_rays, capacity_factor, streams, eager_sort) tune the
     wavefront and are ignored by the other backends.  Without a
     capacity_factor the wavefront runs the auto ladder, re-rendering at
     the next capacity on any drop; drops left after it are reported per

@@ -73,9 +73,18 @@ def test_scene_file_round_trip_and_flags(tmp_path, capsys):
     ["--streams", "2", "--interleave"],
     ["--streams", "2", "--interleave", "--chunk-rays", "1024"], ["--streams", "2"],
 ])
-def test_unported_flags_name_the_roadmap(flags, capsys):
-    assert tcli.main(flags) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+def test_unported_flags_name_the_roadmap(flags, tmp_path):
+    """raytpu's --streams command lines, which the port once refused, render
+    on --cpu --backend wavefront: the same PPM as without --streams (a
+    96x96 frame, two 8192-ray chunks under --chunk-rays 1024)."""
+    base = ["--width", "96", "--height", "96", "--max-depth", "2",
+            "--alias-factor", "1", "--cpu", "--backend", "wavefront",
+            "--strict-drops"]
+    rest = flags[2:]
+    a, b = str(tmp_path / "streams.ppm"), str(tmp_path / "one.ppm")
+    assert tcli.main(base + flags + ["-o", a]) == 0
+    assert tcli.main(base + rest + ["-o", b]) == 0
+    np.testing.assert_array_equal(read_ppm(a), read_ppm(b))
 
 
 @pytest.mark.parametrize("flags", [

@@ -15,7 +15,8 @@ forwards differ by more than 1e-5*scale (a flipped grazing branch has a
 near-singular gradient).  The wavefront's level backward is held per ray
 and per table under the same contract; its compaction transpose bit for
 bit; its whole gradient against the kernel pair's under
-tests/test_wavefront.py:196-219's (every leaf within 2e-3*scale).  The
+tests/test_wavefront.py:196-219's (every leaf within 2e-3*scale), also
+over checkpointed chunks on side streams.  The
 level kernel through its BVH and the level backward from the saved
 selections are held to their brute-force reference instances bit for bit
 (the backward's atomically summed tables within 1e-5 x scale), and the
@@ -432,6 +433,45 @@ def test_loss_and_grad_wavefront_matches_kernel_pair(dev):
     for a, b in zip(scene_leaves(gw), scene_leaves(gp)):
         a, b = a.cpu().numpy(), b.cpu().numpy()
         assert np.abs(a - b).max() <= 2e-3 * max(float(np.abs(b).max()), 1e-12)
+
+
+def test_streams_and_checkpointed_chunks_on_the_card(dev):
+    """A 3-chunk frame at streams 1, 2 and 3 (chunk c on side stream c %
+    streams): the same frame within 1e-6 * max (index_add_'s atomics) and
+    the same drops; its training step at streams 1 and 2 checkpoints each
+    chunk (K3 and K5 twice a chunk, K4 and K6 once) and holds K1 + K2's
+    loss and leaves as above."""
+    from raytpu_torch.grad import loss_and_grad_sharded
+    from raytpu_torch.parallel.mesh import Mesh
+
+    cfg = RenderConfig(width=160, height=120, max_depth=2, alias_factor=1)
+    scene = random_scene(24, num_lights=2, seed=5, device=dev)
+    chunks = wavefront.wavefront_sizes(cfg, 8192, 2)[3]
+    assert chunks == 3
+    frames = [wavefront.render_pixels_wavefront(scene, cfg, chunk_rays=8192,
+                                                streams=s, return_info=True)
+              for s in (1, 2, 3)]
+    scale = float(frames[0][0].abs().max())
+    for img, info in frames:
+        assert int(info["dropped"]) == 0
+        assert float((img - frames[0][0]).abs().max()) <= 1e-6 * scale
+    target = torch.zeros(cfg.num_pixels, 3, device=dev)
+    lp, gp = loss_and_grad(scene, cfg, target, backend="cuda")
+    kernels = (wavefront.WF_LEVEL, wavefront.WF_LEVEL_BWD, wavefront.WF_COMPACT,
+               wavefront.WF_UNCOMPACT)
+    for streams in (1, 2):
+        counts = [k.launches for k in kernels]
+        lw, gw = loss_and_grad_sharded(scene, cfg, target, Mesh(0, 1, dev),
+                                       "wavefront", wf_opts=dict(
+                                           chunk_rays=8192, capacity_factor=2.0,
+                                           streams=streams))
+        torch.cuda.synchronize()
+        assert [k.launches - c for k, c in zip(kernels, counts)] == [
+            2 * chunks * 3, chunks * 3, 2 * chunks * 2 * 2, chunks * 2]
+        np.testing.assert_allclose(float(lw), float(lp), rtol=1e-5)
+        for a, b in zip(scene_leaves(gw), scene_leaves(gp)):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            assert np.abs(a - b).max() <= 2e-3 * max(float(np.abs(b).max()), 1e-12)
 
 
 def test_fit_scene_wavefront_escalates_the_ladder(dev):

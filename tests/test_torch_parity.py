@@ -153,8 +153,6 @@ DROPPED = {
                     "compaction sorts: the port has one compaction, K5",
     "ad": "the wavefront is differentiable whenever autograd records and a "
           "scene leaf requires grad",
-    "streams": "the wavefront's chunk pipelines, measured neutral on the TPU "
-               "and not ported (ROADMAP)",
 }
 # raytpu's parameters the port names otherwise: the port's pytree is a Scene.
 RENAMED = {"pytree": "scene"}
