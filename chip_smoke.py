@@ -184,9 +184,20 @@ result lines):
      loss, a peak of at most 16 GiB, loss and leaves against one K1 + K2
      step under the same bound.  K3, K4, K5 and K6 must launch; their
      launches go into the kernels line's counts.
-K1's and K2's launches in the kernels line are phase 7's and phase 19's
-summed, K3's and K5's phase 11's and phase 21's, K4's and K6's phase 14's
-and phase 21's, each path's count beside them in "launches_by_path".
+ 22. the measuring tools (raytpu_torch.tools), each in a fresh process:
+     `bench_all` over raytpu's five BASELINE configs (config 5 on
+     random_scene(256, num_lights=4) at seed 0), exit 0, no `*_error` key,
+     and each key's launches those of its path (a forward one K1 a call, a
+     dense step one K1 and one K2 a call, the config-5 frame chunks x 7 K3
+     and chunks x 6 x 2 K5 a call, the config-5 step twice those plus
+     chunks x 7 K4 and chunks x 6 K6 a call, no other kernel);
+     `step_bench` at its defaults; `shard_balance` at 1920x1080 3x3 over 4
+     shards, in blocks and with --interleave; `wf_breakdown` at its
+     defaults; each line printed on a phase line.
+K1's and K2's launches in the kernels line are phase 7's, phase 19's and
+phase 22's summed, K3's and K5's phase 11's, phase 21's and phase 22's,
+K4's and K6's phase 14's, phase 21's and phase 22's, each path's count
+beside them in "launches_by_path".
 The last three lines are nvidia-smi's, the kernels JSON and
 {"ok": true, "device": ...}.
 """
@@ -195,6 +206,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2454,6 +2466,154 @@ def chunks_phase(dev, smi) -> dict:
     return out
 
 
+def tool_run(module: str, *args: str, timeout: int = 600):
+    """`python -m raytpu_torch.tools.<module> args` in a fresh process:
+    (its standard output, its standard error, seconds), or fail unless it
+    exits 0."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"raytpu_torch.tools.{module}", *args],
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=timeout)
+    check(res.returncode == 0, f"{module} {' '.join(args)} exited {res.returncode}: "
+          f"{res.stdout[-3000:]}{res.stderr[-4000:]}")
+    return res.stdout, res.stderr, time.perf_counter() - t0
+
+
+def bench_all_launches(row: dict) -> dict:
+    """The launches each key of a bench_all row must count: its calls (the
+    first, the timed runs, and the wavefront's drop read) times one pass
+    of its path."""
+    from raytpu_torch.config import RenderConfig
+    from raytpu_torch.grad import WF_TRAIN_CAPACITY
+    from raytpu_torch.kernels.wavefront import wavefront_sizes
+    from raytpu_torch.render import WF_AUTO_CHUNK_TRAIN
+    from raytpu_torch.tools import bench_all
+    from raytpu_torch.tools.common import KERNELS
+
+    cfg = RenderConfig(width=row["width"], height=row["height"],
+                       max_depth=row["depth"], alias_factor=row["alias"])
+    d = cfg.max_depth
+    none = dict.fromkeys(KERNELS, 0)
+    dense = 1 + bench_all.REPS
+    want = {"fwd": dict(none, trace_fwd=dense)}
+    if "fwd_wavefront_ms" in row:
+        chunks = wavefront_sizes(cfg, **bench_all.WAVEFRONT_OPTS)[3]
+        calls = 2 + bench_all.REPS
+        want["fwd_wavefront"] = dict(none, wf_level=calls * chunks * (d + 1),
+                                     wf_compact=calls * chunks * d * 2)
+    if "fwd_bwd_wavefront_ms" in row:
+        chunks = wavefront_sizes(cfg, WF_AUTO_CHUNK_TRAIN, WF_TRAIN_CAPACITY)[3]
+        calls = 2 + bench_all.STEP_REPS
+        twice = 2 if chunks > 1 else 1  # each checkpointed chunk's forward re-runs
+        want["fwd_bwd_wavefront"] = dict(
+            none, wf_level=calls * twice * chunks * (d + 1),
+            wf_compact=calls * twice * chunks * d * 2,
+            wf_level_bwd=calls * chunks * (d + 1), wf_uncompact=calls * chunks * d)
+    elif "fwd_bwd_ms" in row:
+        want["fwd_bwd"] = dict(none, trace_fwd=dense, trace_bwd=dense)
+    return want
+
+
+def tools_phase() -> dict:
+    """Phase 22: the measuring tools (raytpu_torch.tools), each in a fresh
+    process: bench_all with config 5, step_bench at its defaults,
+    shard_balance at config-5 size over 4 shards in blocks and interleaved
+    (both at once: it times nothing), wf_breakdown at its defaults.  Each
+    line's launches must be its path's.  Returns each kernel's launches
+    over the tools and their lines."""
+    from raytpu_torch.tools import step_bench, wf_breakdown
+    from raytpu_torch.tools.common import KERNELS
+
+    t_phase = time.perf_counter()
+    lines = {}
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(launches):
+        for key in launches.values():
+            for name, n in key.items():
+                total[name] += n
+
+    out, _, seconds = tool_run("bench_all")
+    rows = [json.loads(line) for line in out.strip().splitlines()]
+    check([r["config"] for r in rows] == ["config1", "config2", "config3", "golden",
+                                          "config5"],
+          f"bench_all printed {[r.get('config') for r in rows]}")
+    for r in rows:
+        errors = {k: v for k, v in r.items() if k.endswith("_error")}
+        check(not errors, f"bench_all {r['config']}: {errors}")
+        wavefront = r["config"] == "config5"
+        check(("fwd_wavefront_ms" in r) == ("fwd_bwd_wavefront_ms" in r) == wavefront
+              and ("fwd_bwd_ms" in r) != wavefront,
+              f"bench_all {r['config']} took the wrong paths: {sorted(r)}")
+        want = bench_all_launches(r)
+        check(r["launches"] == want,
+              f"bench_all {r['config']}: launches {r['launches']}, expected {want}")
+        add(r["launches"])
+        print(f"phase 22: bench_all {json.dumps(r)}")
+    lines["bench_all"] = rows
+    print(f"phase 22: bench_all in a fresh process: exit 0 in {seconds:.1f} s; "
+          f"every key's launches those of its path")
+
+    out, _, seconds = tool_run("step_bench")
+    line = json.loads(out.strip().splitlines()[-1])
+    calls = 1 + step_bench.REPS
+    none = dict.fromkeys(KERNELS, 0)
+    step = dict(none, trace_fwd=calls, trace_bwd=calls)
+    want = {"fwd": dict(none, trace_fwd=calls), "flat_step": step, "packed_step": step}
+    check(line["launches"] == want, f"step_bench launches {line['launches']}, "
+          f"expected {want}")
+    check(min(line["fwd_ms"], line["flat_step_ms"], line["packed_step_ms"]) > 0,
+          f"step_bench {line}")
+    add(line["launches"])
+    lines["step_bench"] = line
+    print(f"phase 22: step_bench ({seconds:.1f} s) {json.dumps(line)}")
+
+    shard_args = ["--width", "1920", "--height", "1080", "--alias", "3", "--shards", "4"]
+    with ThreadPoolExecutor(2) as pool:
+        runs = list(pool.map(lambda extra: tool_run("shard_balance", *shard_args, *extra),
+                             ([], ["--interleave"])))
+    for layout, (out, err, seconds) in zip(("blocks", "interleave"), runs):
+        line = json.loads(out)
+        # Each shard's live rays over its 6 levels: the busiest shard's sum
+        # over the mean sum is the split's bound on a step's imbalance.
+        shards = [json.loads(m.group(1)) for m in
+                  re.finditer(r"^shard \d+: (\[.*\])$", err, re.MULTILINE)]
+        check(len(shards) == 4, f"shard_balance {layout} printed {err[-2000:]}")
+        sums = [sum(c) for c in shards]
+        line["per_shard"] = shards
+        line["sum_max_over_mean"] = max(sums) / (sum(sums) / len(sums))
+        want = {"wf_level": 4 * 6, "wf_compact": 4 * 6 * 2}
+        check(line["launches"] == dict(none, **want),
+              f"shard_balance {layout} launches {line['launches']}")
+        check(list(line["levels"]) == [f"L{i}" for i in range(1, 7)]
+              and all(v["max"] > 0 and v["max_over_mean"] >= 1
+                      for v in line["levels"].values()),
+              f"shard_balance {layout}: {line['levels']}")
+        add({layout: line["launches"]})
+        lines[f"shard_balance_{layout}"] = line
+        print(f"phase 22: shard_balance 1920x1080 d6 a3 N=256 4 shards {layout} "
+              f"({seconds:.1f} s) {json.dumps(line)}")
+
+    out, _, seconds = tool_run("wf_breakdown")
+    line = json.loads(out.strip().splitlines()[-1])
+    reps = 1 + wf_breakdown.REPS
+    want = {"level_spawn": dict(none, wf_level=reps),
+            "level_leaf": dict(none, wf_level=reps),
+            "compact_2x": dict(none, wf_compact=2 * reps),
+            "scatter": none, "scatter_eighth_live": none}
+    check(line["launches"] == want, f"wf_breakdown launches {line['launches']}, "
+          f"expected {want}")
+    check(all(line[f"{k}_ms"] >= 0 and min(line[f"{k}_times_ms"]) > 0 for k in want),
+          f"wf_breakdown {line}")
+    add(line["launches"])
+    lines["wf_breakdown"] = line
+    print(f"phase 22: wf_breakdown ({seconds:.1f} s) {json.dumps(line)}")
+    check(all(total[k] > 0 for k in KERNELS), f"the tools launched {total}")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 22: the tools launched {json.dumps(total)} in {seconds:.1f} s")
+    return {"launches": total, "lines": lines, "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -2823,15 +2983,17 @@ def main() -> int:
     (packed_fwd, packed_bwd), packed = packed_phase(dev, smi)
     bench_line = bench_phase(dev)
     chunks = chunks_phase(dev, smi)
+    tools = tools_phase()
     # The wavefront kernels' launches: their main path's (the CLI's frame,
-    # phase 11, for K3 and K5; the config-5 fit, phase 14, for K4 and K6)
-    # and phase 21's chunk loop.
+    # phase 11, for K3 and K5; the config-5 fit, phase 14, for K4 and K6),
+    # phase 21's chunk loop and phase 22's tools.
     for entry, kname, path in ((k3, "wf_level", "cli"), (k5, "wf_compact", "cli"),
                                (k4, "wf_level_bwd", "fit"),
                                (k6, "wf_uncompact", "fit")):
         entry["launches_by_path"] = {path: entry["launches"],
-                                     "chunks": chunks["launches"][kname]}
-        entry["launches"] += chunks["launches"][kname]
+                                     "chunks": chunks["launches"][kname],
+                                     "tools": tools["launches"][kname]}
+        entry["launches"] += chunks["launches"][kname] + tools["launches"][kname]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(smi)
@@ -2839,8 +3001,9 @@ def main() -> int:
         {"name": "trace_fwd", "route": "cuda",
          "source": os.path.relpath(str(TRACE_FWD.source), ROOT),
          "replaces": "raytpu/kernels/trace_pallas.py:798",
-         "launches": fwd_launches + packed_fwd,
-         "launches_by_path": {"fit": fwd_launches, "packed": packed_fwd},
+         "launches": fwd_launches + packed_fwd + tools["launches"]["trace_fwd"],
+         "launches_by_path": {"fit": fwd_launches, "packed": packed_fwd,
+                              "tools": tools["launches"]["trace_fwd"]},
          "max_abs_err": s_fwd["max_abs_err"],
          "ms": times["config3"][0], "plain_ms": times["config3"][1],
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
@@ -2848,8 +3011,9 @@ def main() -> int:
         {"name": "trace_bwd", "route": "cuda",
          "source": os.path.relpath(str(TRACE_BWD.source), ROOT),
          "replaces": "raytpu/kernels/trace_pallas.py:1248",
-         "launches": bwd_launches + packed_bwd,
-         "launches_by_path": {"fit": bwd_launches, "packed": packed_bwd},
+         "launches": bwd_launches + packed_bwd + tools["launches"]["trace_bwd"],
+         "launches_by_path": {"fit": bwd_launches, "packed": packed_bwd,
+                              "tools": tools["launches"]["trace_bwd"]},
          "max_abs_err": bwd_abs,
          "max_rel_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_s * 1e3,
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
@@ -2878,6 +3042,8 @@ def main() -> int:
     print("phase 19: packed-tile step and culling " + json.dumps(packed))
     print("phase 20: bench " + json.dumps(bench_line))
     print("phase 21: chunk loop " + json.dumps(chunks))
+    print(f"phase 22: the tools in {tools['seconds']:.1f} s, launches "
+          + json.dumps(tools["launches"]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

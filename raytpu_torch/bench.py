@@ -53,13 +53,14 @@ import traceback
 import torch
 
 from raytpu_torch.config import RenderConfig
-from raytpu_torch.device import local_device, nvidia_smi_line
+from raytpu_torch.device import local_device
 from raytpu_torch.grad import loss_and_grad, resolve_train_backend
 from raytpu_torch.kernels.trace_cuda import (TRACE_BWD, TRACE_FWD,
                                              render_pixels_cuda, scene_tables)
 from raytpu_torch.kernels.wavefront import WF_COMPACT, WF_LEVEL
 from raytpu_torch.render import render_timed
 from raytpu_torch.scene import default_scene, random_scene
+from raytpu_torch.tools.common import card_fields, counted, ms, timed
 from raytpu_torch.utils.profiling import Timer
 
 CONFIG3 = RenderConfig(width=640, height=480, max_depth=4, alias_factor=3)
@@ -101,32 +102,6 @@ def train_step(scene, cfg: RenderConfig):
             resolve_train_backend("auto", scene, cfg))
 
 
-def _times(fn, timer: Timer, reps: int = REPS):
-    """Seconds of each of `reps` calls of fn after one warm-up call, by
-    `timer`: Timer() for the host clock, each call's CUDA result waited
-    for; Timer(device) for CUDA events."""
-    with timer.section("warm-up") as box:
-        box["value"] = fn()
-    for _ in range(reps):
-        with timer.section("run") as box:
-            box["value"] = fn()
-    return timer.times()["run"]
-
-
-def _counted(measure, launches: dict, key: str):
-    """measure()'s result; each kernel's launches in it go to
-    launches[key]."""
-    for kernel in KERNELS.values():
-        kernel.launches = 0
-    out = measure()
-    launches[key] = {name: k.launches for name, k in KERNELS.items()}
-    return out
-
-
-def _ms(times):
-    return [t * 1e3 for t in times]
-
-
 def run(device, cfg: RenderConfig = CONFIG3, golden: RenderConfig = GOLDEN,
         config5: RenderConfig = CONFIG5,
         config5_spheres: int = CONFIG5_SPHERES) -> dict:
@@ -139,39 +114,40 @@ def run(device, cfg: RenderConfig = CONFIG3, golden: RenderConfig = GOLDEN,
     scene = default_scene(device=device)
     launches = {}
 
-    _, fwd = _counted(lambda: render_timed(scene, cfg, warmup=1, iters=REPS),
-                      launches, "fwd")
-    _, fwd_torch = _counted(lambda: render_timed(
+    _, fwd = counted(lambda: render_timed(scene, cfg, warmup=1, iters=REPS),
+                     launches, "fwd", KERNELS)
+    _, fwd_torch = counted(lambda: render_timed(
         scene, cfg, warmup=1, iters=EAGER_REPS, backend="torch"),
-        launches, "fwd_torch")
+        launches, "fwd_torch", KERNELS)
     fwd_device = None
     if on_card:
         tables = scene_tables(scene)
-        fwd_device = _counted(lambda: _times(
+        fwd_device = counted(lambda: timed(
             lambda: render_pixels_cuda(scene, cfg, tables=tables),
-            Timer(device)), launches, "fwd_device")
+            Timer(device), REPS)[1], launches, "fwd_device", KERNELS)
 
     step, step_backend = train_step(scene, cfg)
     loss = float(step()[0])
     if not math.isfinite(loss):
         raise RuntimeError(f"the step's loss is {loss}")
-    step_wall = _counted(lambda: _times(step, Timer()), launches, "fwd_bwd")
-    step_device = (_counted(lambda: _times(step, Timer(device)), launches,
-                            "step_device") if on_card else None)
+    step_wall = counted(lambda: timed(step, Timer(), REPS)[1], launches,
+                        "fwd_bwd", KERNELS)
+    step_device = (counted(lambda: timed(step, Timer(device), REPS)[1], launches,
+                           "step_device", KERNELS) if on_card else None)
 
     golden_step, _ = train_step(scene, golden)
-    golden_wall = _counted(lambda: _times(golden_step, Timer()), launches,
-                           "golden_800x600_d5_fwd_bwd")
+    golden_wall = counted(lambda: timed(golden_step, Timer(), REPS)[1], launches,
+                          "golden_800x600_d5_fwd_bwd", KERNELS)
 
     s5 = random_scene(config5_spheres, seed=3, device=device)
-    _, c5 = _counted(lambda: render_timed(s5, config5, warmup=1, iters=REPS,
-                                          backend="wavefront"),
-                     launches, "config5_1080p_d6_N256_wavefront")
+    _, c5 = counted(lambda: render_timed(s5, config5, warmup=1, iters=REPS,
+                                         backend="wavefront"),
+                    launches, "config5_1080p_d6_N256_wavefront", KERNELS)
 
     fwd_s = statistics.median(fwd["times"])
     fwd_bwd_s = statistics.median(step_wall)
-    fwd_device_ms = statistics.median(_ms(fwd_device)) if on_card else None
-    step_device_ms = statistics.median(_ms(step_device)) if on_card else None
+    fwd_device_ms = statistics.median(ms(fwd_device)) if on_card else None
+    step_device_ms = statistics.median(ms(step_device)) if on_card else None
     step_device_mrays = rays / step_device_ms / 1e3 if on_card else None
     return {
         "metric": metric(cfg),
@@ -185,26 +161,24 @@ def run(device, cfg: RenderConfig = CONFIG3, golden: RenderConfig = GOLDEN,
         "fwd_bwd_seconds": fwd_bwd_s,
         "fwd_bwd_backend": step_backend,
         "fwd_torch_mrays_per_s": rays / statistics.median(fwd_torch["times"]) / 1e6,
-        "golden_800x600_d5_fwd_bwd_ms": statistics.median(_ms(golden_wall)),
+        "golden_800x600_d5_fwd_bwd_ms": statistics.median(ms(golden_wall)),
         "config5_1080p_d6_N256_wavefront_s": statistics.median(c5["times"]),
         "config5_dropped_rays": c5["dropped"],
         "fwd_device_ms": fwd_device_ms,
         "fwd_device_mrays_per_s": rays / fwd_device_ms / 1e3 if on_card else None,
         "step_device_ms": step_device_ms,
         "step_device_mrays_per_s": step_device_mrays,
-        "device": torch.cuda.get_device_name(device) if on_card else str(device),
-        "power_limit": (nvidia_smi_line(device).rsplit(",", 1)[1].strip()
-                        if on_card else None),
+        **card_fields(device),
         "backend": device.type,
         "width": cfg.width, "height": cfg.height, "depth": cfg.max_depth,
         "alias": cfg.alias_factor,
-        "fwd_times_ms": _ms(fwd["times"]),
-        "fwd_torch_times_ms": _ms(fwd_torch["times"]),
-        "fwd_device_times_ms": _ms(fwd_device) if on_card else None,
-        "fwd_bwd_times_ms": _ms(step_wall),
-        "step_device_times_ms": _ms(step_device) if on_card else None,
-        "golden_800x600_d5_fwd_bwd_times_ms": _ms(golden_wall),
-        "config5_1080p_d6_N256_wavefront_times_ms": _ms(c5["times"]),
+        "fwd_times_ms": ms(fwd["times"]),
+        "fwd_torch_times_ms": ms(fwd_torch["times"]),
+        "fwd_device_times_ms": ms(fwd_device) if on_card else None,
+        "fwd_bwd_times_ms": ms(step_wall),
+        "step_device_times_ms": ms(step_device) if on_card else None,
+        "golden_800x600_d5_fwd_bwd_times_ms": ms(golden_wall),
+        "config5_1080p_d6_N256_wavefront_times_ms": ms(c5["times"]),
         "launches": launches,
     }
 

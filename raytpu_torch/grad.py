@@ -65,23 +65,29 @@ from raytpu_torch.trace import render_pixels
 WF_TRAIN_CAPACITY = 2.0
 
 
+def card_train_backend(scene, cfg: RenderConfig) -> str:
+    """What "auto" trains `scene` at `cfg` through on a CUDA device,
+    wherever the scene lies: the wavefront where the kernel pair does not
+    take the scene (a depth above MAX_DEPTH, more than MAX_SPHERES spheres
+    or MAX_LIGHTS lights, or 8 (12N + 6L + 5) bytes of shared memory above
+    SMEM_BYTES for the backward kernel) or where the measured training
+    crossover says so, else "cuda"."""
+    n, nl = scene.spheres.count, scene.lights.count
+    if (not dense_takes(scene, cfg) or _bwd_shared_bytes(n, nl) > SMEM_BYTES
+            or _wf_wins_train(n, cfg)):
+        return "wavefront"
+    return "cuda"
+
+
 def resolve_train_backend(backend: str, scene, cfg: RenderConfig,
                           gid=None) -> str:
     """The training backend for `scene` at `cfg`: "auto" on a CUDA scene is
-    the wavefront where the kernel pair does not take the scene (a depth
-    above MAX_DEPTH, more than MAX_SPHERES spheres or MAX_LIGHTS lights, or
-    8 (12N + 6L + 5) bytes of shared memory above SMEM_BYTES for the
-    backward kernel) or where the measured training crossover says so,
-    else "cuda".  With a pixel subset `gid`, "auto" is "torch": the
-    kernels and the wavefront differentiate whole frames."""
+    card_train_backend's choice.  With a pixel subset `gid`, "auto" is
+    "torch": the kernels and the wavefront differentiate whole frames."""
     if backend == "auto" and gid is not None:
         return "torch"
     if backend == "auto" and scene.device.type == "cuda":
-        n, nl = scene.spheres.count, scene.lights.count
-        if (not dense_takes(scene, cfg) or _bwd_shared_bytes(n, nl) > SMEM_BYTES
-                or _wf_wins_train(n, cfg)):
-            return "wavefront"
-        return "cuda"
+        return card_train_backend(scene, cfg)
     return resolve_backend(backend, scene)
 
 

@@ -71,23 +71,30 @@ def _wf_wins_train(n_spheres: int, cfg: RenderConfig) -> bool:
             and n_spheres * cfg.max_depth >= _WF_MIN_TRAIN_WORK)
 
 
+def card_backend(scene, cfg: RenderConfig) -> str:
+    """What "auto" renders `scene` at `cfg` through on a CUDA device,
+    wherever the scene lies: the wavefront where the dense kernel does not
+    take the scene at that depth (at any depth, 0 included) or where the
+    measured crossover says so, else "cuda"."""
+    if not dense_takes(scene, cfg) or _wf_wins(scene.spheres.count,
+                                               cfg.max_depth):
+        return "wavefront"
+    return "cuda"
+
+
 def resolve_backend(backend: str = "auto", scene=None,
                     cfg: RenderConfig | None = None, device=None) -> str:
     """Resolve "auto" to a concrete backend for a scene on its device (or,
     without a scene, on `device`, default this process's card, which
     raises without one).  With `scene` and `cfg`, "auto" on a CUDA device
-    is the wavefront where the dense kernel does not take the scene at
-    that depth (at any depth, 0 included) or where the measured crossover
-    says so.  An explicit "cuda" is kept: its kernel raises on what it
-    does not take."""
+    is card_backend's choice.  An explicit "cuda" is kept: its kernel
+    raises on what it does not take."""
     device = scene.device if scene is not None else resolve_device(device)
     if backend == "auto":
         if device.type != "cuda":
             return "torch"
-        if (scene is not None and cfg is not None
-                and (not dense_takes(scene, cfg)
-                     or _wf_wins(scene.spheres.count, cfg.max_depth))):
-            return "wavefront"
+        if scene is not None and cfg is not None:
+            return card_backend(scene, cfg)
         return "cuda"
     if backend == "cuda" and device.type != "cuda":
         raise ValueError(f"backend 'cuda' needs a scene on a CUDA device, "

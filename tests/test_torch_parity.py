@@ -11,10 +11,17 @@ counterpart must take it; the comment says how it maps.  A row of the
 same form takes raytpu's parameters in raytpu's order, bar the named
 exceptions, and may add its own only after them.  The port says cuda
 where raytpu says pallas.
+
+The repo's other entry points are its scripts under tools/.  TOOL_PORTS
+holds each of them: ported (the port's module, run as python -m, with
+raytpu's flags and defaults plus --cpu), of another form (where its work
+lives in the port), or not ported (why).  A script without an entry fails.
 """
 
+import ast
 import importlib
 import inspect
+import os
 import pkgutil
 
 import bench
@@ -267,3 +274,130 @@ def test_the_order_check_sees_a_fault():
         want = parameters(resolve(name))
         assert parameters(old)[:len(want)] != want
         assert parameters(resolve(COUNTERPARTS[name]))[:len(want)] == want
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORTED, OTHER_FORM, NOT_PORTED = "ported", "another form", "not ported"
+_TPU_STUDY = "a study of the TPU's compiler or units, with no counterpart on a card: "
+_REFERENCE_PPMS = ("reads the reference renderer's own golden PPMs "
+                   "(raytracer_gamma/testPPM*.ppm), which the repository does not "
+                   "hold; it waits until they are committed")
+
+# tools/<name>.py -> (PORTED, the port's module), (OTHER_FORM, a port path
+# or file that carries its work, how), or (NOT_PORTED, None, why).
+TOOL_PORTS = {
+    "bench_all": (PORTED, "raytpu_torch.tools.bench_all"),
+    "multiprocess_demo": (PORTED, "raytpu_torch.tools.multiprocess_demo"),
+    "shard_balance": (PORTED, "raytpu_torch.tools.shard_balance"),
+    "step_bench": (PORTED, "raytpu_torch.tools.step_bench"),
+    "wf_breakdown": (PORTED, "raytpu_torch.tools.wf_breakdown"),
+    "bwd_bench": (OTHER_FORM, "raytpu_torch.tools.step_bench",
+                  "the forward and the steps; K2 alone is chip_smoke.py phase 8's, "
+                  "by CUDA events, which need no slope over a dispatch floor"),
+    "chunk_profile": (OTHER_FORM, "raytpu_torch.utils.profiling.profile_trace",
+                      "torch.profiler; chip_smoke.py phase 12 profiles a config-5 "
+                      "frame with it"),
+    "cull_sim": (OTHER_FORM, "raytpu_torch.kernels.culling",
+                 "raytpu's masks function for function; chip_smoke.py phase 19 "
+                 "measures their live share on config-5 chunk 0"),
+    "device_time": (OTHER_FORM, "raytpu_torch.utils.profiling.Timer",
+                    "CUDA events; chip_smoke.py phases 9 and 12 compute the bounds"),
+    "train_frontier": (OTHER_FORM, "chip_smoke.py",
+                       "phase 15's chunk sweep of the config-5 training step"),
+    "wf_ablate": (OTHER_FORM, "chip_smoke.py",
+                  "phase 12's live counts and K3/K5 times at every level of "
+                  "config-5 chunk 0"),
+    "wf_frontier": (OTHER_FORM, "chip_smoke.py",
+                    "phase 12's chunk x capacity sweep of the config-5 frame"),
+    "body_bench": (NOT_PORTED, None, _TPU_STUDY + "sphere-loop bodies in a Pallas kernel"),
+    "glue_bench": (NOT_PORTED, None, _TPU_STUDY + "XLA sorts and gathers as wavefront glue"),
+    "mosaic_repros": (NOT_PORTED, None, _TPU_STUDY + "Mosaic compiler failures"),
+    "mxu_level_bench": (NOT_PORTED, None, _TPU_STUDY + "sphere tests on the MXU"),
+    "overlap_study": (NOT_PORTED, None, _TPU_STUDY + "the psum in XLA's compiled schedule"),
+    "permute_bench": (NOT_PORTED, None, _TPU_STUDY + "XLA's permutation primitives"),
+    "scatter_bench": (NOT_PORTED, None, _TPU_STUDY + "the XLA scatter-add's cost"),
+    "segsum_bench": (NOT_PORTED, None, _TPU_STUDY + "a segmented pre-reduction of XLA's scatter"),
+    "probe_cond_f32_residuals": (NOT_PORTED, None, _TPU_STUDY + "a Mosaic legalization probe"),
+    "probe_cursor_copy": (NOT_PORTED, None, _TPU_STUDY + "a Pallas grid pattern probe"),
+    "probe_glue_crash": (NOT_PORTED, None, _TPU_STUDY + "a TPU worker crash bisection"),
+    "probe_mosaic": (NOT_PORTED, None, _TPU_STUDY + "Mosaic feature probes"),
+    "compact_ab": (NOT_PORTED, None,
+                   "chooses raytpu's compact_mode, a TPU-only variant: the port "
+                   "has one compaction, K5"),
+    "step_device_ab": (NOT_PORTED, None,
+                       "chooses RAYTPU_BWD_FULLTREE, raytpu's TPU-only backward "
+                       "variants"),
+    "regen_goldens": (NOT_PORTED, None,
+                      "writes raytpu's goldens (tests/goldens), which the port is "
+                      "held to and must not write"),
+    "fit_golden": (NOT_PORTED, None, _REFERENCE_PPMS),
+    "fit_golden2": (NOT_PORTED, None, _REFERENCE_PPMS),
+    "fit_old_goldens": (NOT_PORTED, None, _REFERENCE_PPMS),
+    "golden_full": (NOT_PORTED, None, _REFERENCE_PPMS),
+    "diag_badpix": (NOT_PORTED, None, _REFERENCE_PPMS),
+    "divsqrt_study": (NOT_PORTED, None, _REFERENCE_PPMS),
+    "fma_study": (NOT_PORTED, None, _REFERENCE_PPMS),
+}
+# Ported tools whose flags are not raytpu's, and why.
+OWN_FLAGS = {
+    "multiprocess_demo": "one process a rank on torch.distributed: a file "
+                         "rendezvous in place of --port, named suites in place "
+                         "of --backend",
+}
+
+
+def tool_scripts():
+    return sorted(f[:-3] for f in os.listdir(os.path.join(ROOT, "tools"))
+                  if f.endswith(".py"))
+
+
+def raytpu_flags(name):
+    """{flag: default} of every add_argument call in tools/<name>.py."""
+    with open(os.path.join(ROOT, "tools", f"{name}.py")) as f:
+        tree = ast.parse(f.read())
+    flags = {}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "add_argument"):
+            kw = {k.arg: k.value for k in node.keywords}
+            store_true = (isinstance(kw.get("action"), ast.Constant)
+                          and kw["action"].value == "store_true")
+            default = (eval(compile(ast.Expression(kw["default"]), name, "eval"), {})
+                       if "default" in kw else (False if store_true else None))
+            flags[node.args[0].value] = default
+    return flags
+
+
+def test_every_tool_script_has_an_entry():
+    scripts = tool_scripts()
+    assert len(scripts) == 34
+    missing = sorted(set(scripts) - TOOL_PORTS.keys())
+    assert not missing, f"tools/*.py without an entry: {missing}"
+    stale = sorted(TOOL_PORTS.keys() - set(scripts))
+    assert not stale, f"entries for scripts tools/ no longer has: {stale}"
+    for name, entry in TOOL_PORTS.items():
+        assert entry[0] in (PORTED, OTHER_FORM, NOT_PORTED), name
+        if entry[0] == PORTED:
+            assert callable(importlib.import_module(entry[1]).main), name
+        elif entry[0] == OTHER_FORM:
+            where = entry[1]
+            if where.endswith(".py"):
+                assert os.path.exists(os.path.join(ROOT, where)), name
+            else:
+                resolve(where)
+            assert entry[2], name
+        else:
+            assert entry[1] is None and entry[2], name
+
+
+def test_ported_tools_take_raytpus_flags():
+    """Each ported tool's flags and defaults are raytpu's, plus --cpu."""
+    for name, entry in sorted(TOOL_PORTS.items()):
+        if entry[0] != PORTED or name in OWN_FLAGS:
+            continue
+        parser = importlib.import_module(entry[1]).build_parser()
+        got = {a.option_strings[-1]: a.default for a in parser._actions
+               if a.option_strings and a.option_strings[-1] != "--help"}
+        want = {"--cpu": False, **raytpu_flags(name)}
+        assert got == want, name
+    assert set(OWN_FLAGS) <= {n for n, e in TOOL_PORTS.items() if e[0] == PORTED}
