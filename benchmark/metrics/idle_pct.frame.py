@@ -1,0 +1,6 @@
+"""idle_pct.frame: the share of the traced window, in %, in which no
+kernel, memcpy or memset runs on the device; the mean over ranks."""
+
+
+def read(view):
+    return view.mean_over_ranks(lambda s: 100.0 * (1 - s["busy_ns"] / s["window_ns"]))
