@@ -58,6 +58,7 @@ from raytpu_torch.render import (WF_AUTO_CHUNK_TRAIN, _report_drops,
                                  _wf_wins_train, resolve_backend)
 from raytpu_torch.scene import Scene, scene_from_leaves, scene_leaves
 from raytpu_torch.trace import render_pixels
+from raytpu_torch.utils.profiling import count, scoped, span
 
 # A single wavefront training call's capacity when the caller names none:
 # raytpu's loss_and_grad_wavefront default, above every measured frontier.
@@ -155,8 +156,10 @@ def _value_and_grad(fn, scene):
     """(fn(scene), its gradient as a Scene) by torch.autograd."""
     leaves = [t.detach().requires_grad_(True) for t in scene_leaves(scene)]
     with torch.enable_grad():
-        value = fn(scene_from_leaves(leaves))
-        grads = torch.autograd.grad(value, leaves, allow_unused=True)
+        with span("step.forward"):
+            value = fn(scene_from_leaves(leaves))
+        with span("step.backward"):
+            grads = torch.autograd.grad(value, leaves, allow_unused=True)
     return value.detach(), scene_from_leaves(
         [torch.zeros_like(t) if d is None else d for t, d in zip(leaves, grads)])
 
@@ -220,6 +223,7 @@ def loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,
         on_drop=on_drop, return_info=return_info)
 
 
+@scoped("step.grad")
 def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
                           backend: str = "auto", interleave: bool = False,
                           wf_opts: dict | None = None, on_drop: str = "raise",
@@ -254,21 +258,22 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
         return torch.sum(err * err) / (3 * p)
 
     value, grads = _value_and_grad(loss, scene)
-    # The gradient leaves, the loss and (the wavefront's) the drop count.
-    parts = [*scene_leaves(grads), value] + (
-        [info["dropped"]] if "dropped" in info else [])
-    if mesh.group is not None:
-        # float64: the drop count stays exact past 2^24, and the sum of the
-        # ranks' shares rounds once into float32.
-        buf = all_reduce_sum(mesh, torch.cat([t.reshape(-1).double()
-                                              for t in parts]))
-        parts = [b.reshape(t.shape).to(t.dtype) for b, t in
-                 zip(torch.split(buf, [t.numel() for t in parts]), parts)]
-    # The dense backends drop nothing, and their step reads nothing back.
-    info["dropped"] = (_report_drops(int(parts.pop()), on_drop)
-                       if "dropped" in info else 0)
-    loss_value = parts.pop()
-    grads = scene_from_leaves(parts)
+    with span("step.reduce"):
+        # The gradient leaves, the loss and (the wavefront's) the drop count.
+        parts = [*scene_leaves(grads), value] + (
+            [info["dropped"]] if "dropped" in info else [])
+        if mesh.group is not None:
+            # float64: the drop count stays exact past 2^24, and the sum of
+            # the ranks' shares rounds once into float32.
+            buf = all_reduce_sum(mesh, torch.cat([t.reshape(-1).double()
+                                                  for t in parts]))
+            parts = [b.reshape(t.shape).to(t.dtype) for b, t in
+                     zip(torch.split(buf, [t.numel() for t in parts]), parts)]
+        # The dense backends drop nothing, and their step reads nothing back.
+        info["dropped"] = (_report_drops(int(parts.pop()), on_drop)
+                           if "dropped" in info else 0)
+        loss_value = parts.pop()
+        grads = scene_from_leaves(parts)
     return (loss_value, grads, info) if return_info else (loss_value, grads)
 
 
@@ -311,6 +316,8 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
         opt = optimizer(params)
     mask = ([True] * len(params) if trainable is None
             else [bool(m) for m in scene_leaves(trainable)])
+
+    @scoped("fit.snapshot")
     def snapshot():  # the optimizer updates the leaves in place
         return scene_from_leaves([p.detach().clone() for p in params])
 
@@ -318,24 +325,30 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
     rung = 0
     losses = []
     for step in range(steps):
-        while True:
-            loss, grads, info = loss_and_grad_sharded(
-                snapshot(), cfg, target_flat, mesh=mesh, backend=backend,
-                interleave=interleave, wf_opts=trials[rung], on_drop="ignore",
-                return_info=True)
-            if info["dropped"] == 0:
-                break
-            if rung + 1 == len(trials):
-                _report_drops(info["dropped"], on_drop)
-                break
-            _warn_escalate(info["dropped"], trials[rung], trials[rung + 1])
-            rung += 1  # discard the biased step and re-run it
-        for p, g, m in zip(params, scene_leaves(grads), mask):
-            p.grad = g if m else torch.zeros_like(g)
-        opt.step()
-        losses.append(float(loss))
+        # The step's span holds the callback's snapshot, not the callback.
+        with span("fit.step"):
+            while True:
+                loss, grads, info = loss_and_grad_sharded(
+                    snapshot(), cfg, target_flat, mesh=mesh, backend=backend,
+                    interleave=interleave, wf_opts=trials[rung],
+                    on_drop="ignore", return_info=True)
+                if info["dropped"] == 0:
+                    break
+                if rung + 1 == len(trials):
+                    _report_drops(info["dropped"], on_drop)
+                    break
+                _warn_escalate(info["dropped"], trials[rung], trials[rung + 1])
+                count("fit.reruns")
+                rung += 1  # discard the biased step and re-run it
+            with span("fit.update"):
+                for p, g, m in zip(params, scene_leaves(grads), mask):
+                    p.grad = g if m else torch.zeros_like(g)
+                opt.step()
+            with span("fit.readback"):
+                losses.append(float(loss))
+            state = snapshot() if callback is not None else None
         if callback is not None:
-            callback(step, losses[-1], snapshot())
+            callback(step, losses[-1], state)
     return snapshot(), losses
 
 

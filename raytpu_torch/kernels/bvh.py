@@ -55,6 +55,8 @@ from dataclasses import dataclass
 
 import torch
 
+from raytpu_torch.utils.profiling import scoped
+
 MORTON_BITS = 10     # per axis
 PAD_REL = 1e-3
 PAD_ABS = 1e-4
@@ -111,6 +113,7 @@ def sphere_boxes(spheres_tbl, lights_tbl):
     return pos - half, pos + half
 
 
+@scoped("wf.bvh")
 def build_bvh(spheres_tbl, lights_tbl) -> Bvh:
     """The tree over the scene of scene_tables (spheres (12, N), lights
     (6, L)), on the tables' device."""

@@ -38,6 +38,8 @@ from raytpu_torch.device import resolve_device
 from raytpu_torch.scene import (LEAF_NAMES, Lights, Medium, Scene, Spheres,
                                 scene_from_leaves, scene_leaves)
 from raytpu_torch.trace import camera_constants, render_pixels
+from raytpu_torch.utils import profiling
+from raytpu_torch.utils.profiling import scoped
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -84,7 +86,9 @@ class CudaKernel:
     `symbol` and `argtypes` name the main entry point; `entries` maps the
     names of any others in the same library to their argtypes.
     `launches` is a plain integer that the wrapper adds one to where it
-    launches a kernel, and nowhere else; a caller may reset it."""
+    launches a kernel, and nowhere else; a caller may reset it.
+    profiling.counters() reports it, and the seconds of every library's
+    first load (nvcc's included where it builds)."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes,
                  entries: dict | None = None):
@@ -96,6 +100,7 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""
         self._lib = None
+        profiling.register_kernel(self)
 
     def library_path(self) -> Path:
         h = hashlib.sha256()
@@ -133,13 +138,15 @@ class CudaKernel:
         """The bound C entry point `symbol` (default: the main one),
         building and loading the library first if needed."""
         if self._lib is None:
-            self.build()
+            t0 = time.perf_counter()
+            built = self.build() > 0
             lib = ctypes.CDLL(str(self.library_path()))
             for name, argtypes in self.entries.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             self._lib = lib
+            profiling.kernel_loaded(time.perf_counter() - t0, built)
         return getattr(self._lib, symbol or self.symbol)
 
 
@@ -166,6 +173,7 @@ TRACE_BWD = CudaKernel(
     entries={"raytpu_trace_bwd_ref": _BWD_ARGS})
 
 
+@scoped("scene.tables")
 def scene_tables(scene):
     """The scene packed as the kernel reads it: spheres (12, N) rows pos
     xyz, radius, matte rgb, gloss rgb, opacity, ior; lights (6, L) rows pos
@@ -258,6 +266,7 @@ def _cuda_device(scene, name: str):
     return device
 
 
+@scoped("k1.launch")
 def _fwd_launch(entry: str, scene, cfg: RenderConfig, offset: int, count,
                 stride: int, tables=None):
     """Launch `entry` of K1's library on a CUDA scene -> (count, 3), or
@@ -370,6 +379,7 @@ def grad_pixels_torch(scene, cfg: RenderConfig, g, offset: int = 0,
     return scene_from_leaves(total)
 
 
+@scoped("k2.launch")
 def _grad_launch(entry: str, scene, cfg: RenderConfig, g, offset: int,
                  count, stride: int, tables=None) -> Scene:
     """Launch `entry` of K2's library on a CUDA scene; returns the gradient

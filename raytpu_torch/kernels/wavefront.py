@@ -94,6 +94,8 @@ from raytpu_torch.kernels.trace_cuda import (BG_ROWS, LIGHT_ROWS, SCENE_ROWS,
 from raytpu_torch.ops.geometry import normalize
 from raytpu_torch.scene import scene_from_leaves, scene_leaves
 from raytpu_torch.trace import _gather_medium, _trace_level, camera_constants
+from raytpu_torch.utils import profiling
+from raytpu_torch.utils.profiling import scoped, span
 
 N_STATE = 10
 N_DIFF = 9  # the state fields with a cotangent: not the medium index
@@ -660,6 +662,7 @@ def _side_streams(device, n: int) -> list:
     return have[:n]
 
 
+@scoped("wf.frame")
 def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
                             capacity_factor=2, eager_sort: bool = True,
                             return_info: bool = False, offset: int = 0,
@@ -708,35 +711,46 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
     side = (_side_streams(device, n_side) if device.type == "cuda" and n_side > 1
             else [None] * n_side)
 
+    @scoped("wf.chunk")
     def trace_chunk(c, *tables):
         """Chunk c (raytpu's trace_stream): its (3, ws) window of slot sums
         and the live rays it dropped, a 0-d int64 tensor.  It enters its
         own stream, so that a checkpoint's recompute runs there too, and
-        keeps nothing outside what it returns and what autograd saves."""
+        keeps nothing outside what it returns and what autograd saves.
+        It counts K3's slots a level (wf.slots) and the live rays among
+        them (wf.live): the camera rays inside the window at level 0, the
+        compaction's kept count after it (a level passed on uncompacted
+        counts its slots only)."""
         with _on(side[c % len(side)]):
             state, pid = chunk_camera_state(cfg, chunk, n_chunks, c, npix,
                                             offset, shard_stride, device=device)
+            window = max(0, min(ws, -(-(npix - c) // n_chunks)))
+            profiling.count("wf.live", spp * window)
             lost = torch.zeros((), dtype=torch.int64, device=device)
             for level in range(cfg.max_depth + 1):
-                spawn = level < cfg.max_depth
-                if ad:
-                    out = WfLevelFn.apply(scene, spawn, bvh, *tables, state)
-                    em, children = out if spawn else (out, None)
-                else:
-                    em, children = wf_level(scene, state, spawn, tables, bvh)
-                if level == 0:
-                    accw = em.reshape(3, ws, spp).sum(dim=2)
-                else:
-                    accw.index_add_(1, pid, em)
-                if not spawn:
-                    break
-                rays = state.shape[1]
-                if 2 * rays <= cap and not eager_sort:
-                    state, pid = children, pid.repeat_interleave(2)
-                else:
-                    step = CompactFn.apply if ad else compact
-                    state, pid, n, _ = step(children, pid, min(2 * rays, cap), ws)
-                    lost = lost + n
+                with span("wf.level"):
+                    spawn = level < cfg.max_depth
+                    profiling.count("wf.slots", state.shape[1])
+                    if ad:
+                        out = WfLevelFn.apply(scene, spawn, bvh, *tables, state)
+                        em, children = out if spawn else (out, None)
+                    else:
+                        em, children = wf_level(scene, state, spawn, tables, bvh)
+                    if level == 0:
+                        accw = em.reshape(3, ws, spp).sum(dim=2)
+                    else:
+                        accw.index_add_(1, pid, em)
+                    if not spawn:
+                        break
+                    rays = state.shape[1]
+                    if 2 * rays <= cap and not eager_sort:
+                        state, pid = children, pid.repeat_interleave(2)
+                    else:
+                        step = CompactFn.apply if ad else compact
+                        state, pid, n, kept = step(children, pid,
+                                                   min(2 * rays, cap), ws)
+                        lost = lost + n
+                        profiling.count("wf.live", kept)
             return accw, lost
 
     acc = torch.zeros((3, npix), dtype=torch.float32, device=device)

@@ -33,6 +33,7 @@ import torch.distributed as dist
 from raytpu_torch.config import RenderConfig
 # local_device is re-exported: raytpu_torch.parallel names it.
 from raytpu_torch.device import local_device, resolve_device  # noqa: F401
+from raytpu_torch.utils.profiling import span
 
 PIXEL_AXIS = "px"
 
@@ -104,9 +105,10 @@ def all_reduce_sum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """The sum of `t` over the ranks, on every rank and on t's device."""
     if mesh.group is None:
         return t
-    buf = _comm_copy(mesh, t)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
-    return buf.to(t.device)
+    with span("mesh.all_reduce"):
+        buf = _comm_copy(mesh, t)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+        return buf.to(t.device)
 
 
 def all_gather_rows(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
@@ -114,10 +116,11 @@ def all_gather_rows(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     first axis in rank order, on every rank and on t's device."""
     if mesh.group is None:
         return t
-    buf = _comm_copy(mesh, t)
-    parts = [torch.empty_like(buf) for _ in range(mesh.size)]
-    dist.all_gather(parts, buf, group=mesh.group)
-    return torch.cat(parts).to(t.device)
+    with span("mesh.all_gather"):
+        buf = _comm_copy(mesh, t)
+        parts = [torch.empty_like(buf) for _ in range(mesh.size)]
+        dist.all_gather(parts, buf, group=mesh.group)
+        return torch.cat(parts).to(t.device)
 
 
 def gather_image(mesh: Mesh, rows: torch.Tensor) -> np.ndarray:

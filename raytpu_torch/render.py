@@ -34,7 +34,7 @@ from raytpu_torch.kernels.trace_cuda import (dense_takes, render_pixels_cuda,
 from raytpu_torch.kernels.wavefront import render_pixels_wavefront
 from raytpu_torch.parallel.mesh import (Mesh, all_gather_rows, all_reduce_sum,
                                         make_mesh, pixel_set)
-from raytpu_torch.utils.profiling import Timer
+from raytpu_torch.utils.profiling import Timer, scoped
 
 # The "auto" crossover on an NVIDIA H100 80GB HBM3 at 700 W: the wavefront
 # where spheres x depth reaches _WF_MIN_WORK.  chip_smoke.py phase 12 at
@@ -185,6 +185,7 @@ def render_single(scene, cfg: RenderConfig, backend: str = "auto",
                           wf_opts, return_info, on_drop)
 
 
+@scoped("render.frame")
 def render_sharded(scene, cfg: RenderConfig, mesh=None, backend: str = "auto",
                    wf_opts: dict | None = None, return_info: bool = False,
                    on_drop: str = "warn", interleave: bool = False):
