@@ -74,11 +74,11 @@ result lines):
      instance bit for bit (emissions, children, sel) and in turns (ref, new,
      new, ref), and their bounds for that work: K3's from the boxes and
      spheres a counting host build of the walk tests on a 1-in-64 sample of
-     each level, beside the reference algorithm's, and its bytes from each
-     level's live count; K3 against its reference the same way on two
-     scenes outside config 5, the default scene (N = 3) and
-     random_scene(3000) (the tree read through the read-only cache), each
-     at 640x480 d4 3x3;
+     each level (its expansions printed beside them), beside the reference
+     algorithm's, and its bytes from each level's live count; K3 against
+     its reference the same way on two scenes outside config 5, the
+     default scene (N = 3) and random_scene(3000) (the tree read through
+     the read-only cache), each at 640x480 d4 3x3;
  13. the wavefront's backward kernels against their plain versions at
      config 5's widths (chunk 0 at the training ladder's first rung, level 0
      and the first two compacted levels, seeded cotangents zeroed on the
@@ -332,7 +332,8 @@ def _stack_frames(log):
 
 def build_counting_host():
     """wf_level.cu built by g++ with -DRT_BVH_COUNT: the host traversal that
-    counts the boxes and spheres each query tests.  Returns the library."""
+    counts each query's expansions and the boxes and spheres it tests.
+    Returns the library."""
     import ctypes
     import hashlib
 
@@ -664,8 +665,9 @@ SPHERE_ROOT_OPS = 35  # one sphere test with its real root (21 + 14)
 
 def traversal_counts(lib, tables, bvh, state, spawn, seed, every=64):
     """The counting host build of K3 over a seeded 1-in-`every` sample of
-    the state's ray slots, scaled to all of them: boxes and spheres tested
-    by closest, blocked and contain (six numbers)."""
+    the state's ray slots, scaled to all of them: the expansions of
+    closest, blocked and contain, then the boxes each tested, then the
+    spheres (nine numbers)."""
     import ctypes
 
     import torch
@@ -679,7 +681,7 @@ def traversal_counts(lib, tables, bvh, state, spawn, seed, every=64):
     boxes, order = bvh.boxes.cpu().contiguous(), bvh.order.cpu().contiguous()
     em = torch.empty((3, k))
     kids = torch.empty((10, 2 * k))
-    out = (ctypes.c_longlong * 6)()
+    out = (ctypes.c_longlong * 9)()
     lib.raytpu_bvh_counts_host(out)  # reset
     lib.raytpu_wf_level_host(spheres.data_ptr(), spheres.shape[1], lights.data_ptr(),
                              lights.shape[1], bg.data_ptr(), boxes.data_ptr(),
@@ -691,10 +693,11 @@ def traversal_counts(lib, tables, bvh, state, spawn, seed, every=64):
 
 def bvh_level_ops(work, counts):
     """K3's operations through the tree: FWD_OPS without the sphere loops,
-    plus the boxes and spheres the walk tested (traversal_counts)."""
+    plus the boxes and spheres the walk tested (traversal_counts; an
+    expansion's work is its four box tests)."""
     ops = sum(FWD_OPS[k] * work[k] for k in FWD_OPS
               if k != "sample" and k not in LOOP_KEYS)
-    box_c, box_b, box_p, sph_c, sph_b, sph_p = counts
+    box_c, box_b, box_p, sph_c, sph_b, sph_p = counts[3:]
     ops += BOX_OPS * (box_c + box_b) + POINT_BOX_OPS * box_p
     ops += QUERY_SETUP_OPS * (work["node"] + work["shadow"])
     ops += FWD_OPS["sphere"] * sph_c + FWD_OPS["shadow_sphere"] * sph_b
@@ -993,9 +996,12 @@ def wavefront_phases(dev, count_lib):
                 f"({live_ms:.3f} ms over the live prefix only), plain {pms:.3f} "
                 f"ms, {ops / 1e9:.4f} GFLOP through the tree ({ref_ops / 1e9:.4f} "
                 f"brute force; per live node {counts[0] / max(work['node'], 1):.1f} "
-                f"boxes and {counts[3] / max(work['node'], 1):.1f} spheres for the "
-                f"closest hit, per shadow ray {counts[1] / max(work['shadow'], 1):.1f} "
-                f"and {counts[4] / max(work['shadow'], 1):.1f})")
+                f"expansions, {counts[3] / max(work['node'], 1):.1f} boxes and "
+                f"{counts[6] / max(work['node'], 1):.1f} spheres for the closest "
+                f"hit, per shadow ray {counts[1] / max(work['shadow'], 1):.1f}, "
+                f"{counts[4] / max(work['shadow'], 1):.1f} and "
+                f"{counts[7] / max(work['shadow'], 1):.1f}; {counts[2]:.0f} "
+                f"expansions and {counts[5]:.0f} boxes for the containers)")
         if spawn:
             keep = min(2 * rays, cap)
             cms, out = events_ms(lambda: compact(ch, pid, keep, ws))

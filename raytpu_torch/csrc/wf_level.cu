@@ -25,25 +25,31 @@
 // tests all N spheres for its closest hit, all N per facing light for
 // shadow, and the container: ~99% of the operations on config 5 and 10%
 // of that bound reached.  Bytes are small beside it: 40 read and 12 + 80
-// (+ 4 (2 + ceil(L/32)) with sel) written per ray.
+// (+ 4 (2 + ceil(L/32)) with sel) written per ray.  Through the tree the
+// operations fall ~5x, and what bounds the level is the walk's loop, which
+// a warp runs in lock step for as long as its longest lane's walk.
 //
 // What the design does about it:
 //   * Each ray walks a bounding-volume hierarchy of the spheres (bvh.cuh,
 //     built on the device once per frame by kernels/bvh.py) and tests only
 //     the spheres of the boxes its ray, shadow segment or probe point
-//     meets; the decisions are bit-identical to the loops' (bvh.cuh).
+//     meets; the decisions are bit-identical to the loops' (bvh.cuh).  The
+//     walk takes four children at a time: an iteration tests four boxes
+//     from six 16-byte loads, so the lock-step loop runs about a quarter as
+//     often as a binary walk's over as many boxes.
 //   * The per-node arithmetic is trace_common.cuh's node_forward, the
 //     dense kernels' own, so a wavefront node rounds bit for bit as a K1
 //     node does (both are built with -fmad=false).  The node runs at level
 //     0 with max_depth = spawn ? 1 : 0: the depth bound never enters the
 //     state.
 //   * The scene, lights and background are staged once per block in shared
-//     memory, and so are the tree's boxes and leaf order where all of it
-//     fits the 227 KB a block may use; above that (large N) the tree is
-//     read through the read-only cache (a second template instance), and
-//     where the scene table alone outgrows shared memory (more than ~4800
-//     spheres, or ~9600 lights) the table too is read in place from
-//     global memory (a third), so the wavefront takes scenes of any size.
+//     memory, and so are the tree's boxes (at a 16-byte offset) and leaf
+//     order where all of it fits the 227 KB a block may use; above that
+//     (large N) the tree is read through the read-only cache (a second
+//     template instance), and where the scene table alone outgrows shared
+//     memory (more than ~4800 spheres, or ~9600 lights) the table too is
+//     read in place from global memory (a third), so the wavefront takes
+//     scenes of any size.
 //   * Between levels the rays are compacted, so a warp's lanes are live
 //     rays of neighbouring pixels.  A dead ray (intensity exactly zero, the
 //     compaction's zero tail) reads 12 bytes, writes zeros and exits.
@@ -162,13 +168,20 @@ RT_HD void level_ray(const SceneView& sc, const Q& q,
 namespace {
 
 constexpr int kBlock = 128;
+// Blocks an SM must hold by registers: 72 a thread, which every instance
+// fits without spilling; left to itself ptxas gave the BVH instances 80-96
+// and spilled in the third (H100: chunk 0 of config 5 ran 1.02x faster).
+constexpr int kMinBlocks = 7;
 constexpr size_t kSmemMax = 232448;  // shared memory one block may use
+
+// n floats rounded up to a multiple of 4: 16 bytes.
+RT_HD int align4(int n) { return (n + 3) & ~3; }
 
 // kMode 0: the brute-force loops (the reference instance); 1: the BVH
 // staged in shared memory; 2: the BVH read through the read-only cache;
 // 3: the BVH and the scene table read in place from global memory.
 template <int kMode>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
 wf_level_kernel(const float* __restrict__ scene, int n_spheres,
                 const float* __restrict__ lights, int n_lights,
                 const float* __restrict__ bg,
@@ -177,10 +190,11 @@ wf_level_kernel(const float* __restrict__ scene, int n_spheres,
                 const float* __restrict__ state, long long rays, int spawn,
                 float* __restrict__ em, float* __restrict__ children,
                 int* __restrict__ sel) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int n_scene = SCENE_ROWS * n_spheres;
   const int n_light = LIGHT_ROWS * n_lights;
   const int n_tbl = n_scene + n_light + BG_ROWS;
+  const int box_at = align4(n_tbl);  // the staged boxes' 16-byte offset
   if (kMode != 3) {
     for (int k = threadIdx.x; k < n_tbl; k += blockDim.x) {
       smem[k] = k < n_scene ? scene[k]
@@ -191,7 +205,7 @@ wf_level_kernel(const float* __restrict__ scene, int n_spheres,
   const int nodes = 2 * n_leaves;
   const int n_box = BOX_ROWS * nodes;
   if (kMode == 1) {
-    float* sbox = smem + n_tbl;
+    float* sbox = smem + box_at;
     int* sorder = reinterpret_cast<int*>(sbox + n_box);
     for (int k = threadIdx.x; k < n_box; k += blockDim.x) sbox[k] = boxes[k];
     for (int k = threadIdx.x; k < n_spheres; k += blockDim.x) sorder[k] = order[k];
@@ -207,7 +221,7 @@ wf_level_kernel(const float* __restrict__ scene, int n_spheres,
     level_ray(sc, BruteForce{&sc}, state, rays, i, spawn != 0, em, children,
               sel);
   } else {
-    const float* b = kMode == 1 ? smem + n_tbl : boxes;
+    const float* b = kMode == 1 ? smem + box_at : boxes;
     const int* o = kMode == 1 ? reinterpret_cast<const int*>(b + n_box) : order;
     const BvhQuery q{&sc, BvhView{b, o, nodes, n_leaves, n_spheres, kMode >= 2}};
     level_ray(sc, q, state, rays, i, spawn != 0, em, children, sel);
@@ -241,7 +255,8 @@ size_t table_bytes(int n_spheres, int n_lights) {
 
 // state (10, R); em (3, R); children (10, 2R) or null when !spawn; sel
 // (2 + ceil(L/32), R) int32 or null (not wanted).  boxes (6, 2 n_leaves)
-// and order (N,) are the tree of kernels/bvh.py.
+// and order (N,) are the tree of kernels/bvh.py; boxes 16-byte aligned
+// (the walk reads four columns a load).
 extern "C" int raytpu_wf_level(const float* scene, int n_spheres,
                                const float* lights, int n_lights,
                                const float* bg, const float* boxes,
@@ -253,12 +268,15 @@ extern "C" int raytpu_wf_level(const float* scene, int n_spheres,
   if (err != cudaSuccess) return (int)err;
   if (rays <= 0) return (int)cudaSuccess;
   const size_t tbl = table_bytes(n_spheres, n_lights);
-  const size_t tree = sizeof(float) * (size_t)(BOX_ROWS * 2 * n_leaves) +
-                      sizeof(int) * (size_t)n_spheres;
-  if (tbl + tree <= kSmemMax) {
+  const size_t staged =  // the table padded to 16 bytes, then the tree
+      sizeof(float) * (size_t)align4(SCENE_ROWS * n_spheres +
+                                     LIGHT_ROWS * n_lights + BG_ROWS) +
+      sizeof(float) * (size_t)(BOX_ROWS * 2 * n_leaves) +
+      sizeof(int) * (size_t)n_spheres;
+  if (staged <= kSmemMax) {
     return launch<1>(scene, n_spheres, lights, n_lights, bg, boxes, order,
-                     n_leaves, state, rays, spawn, em, children, sel,
-                     tbl + tree, stream);
+                     n_leaves, state, rays, spawn, em, children, sel, staged,
+                     stream);
   }
   if (tbl <= kSmemMax) {
     return launch<2>(scene, n_spheres, lights, n_lights, bg, boxes, order,
@@ -356,18 +374,19 @@ extern "C" void raytpu_bvh_query_host(const float* scene, int n_spheres,
   }
 }
 
-// The counting build's tallies since the last call, then reset: boxes
-// tested by closest, blocked, contain, then spheres tested by each (zeros
-// unless built with -DRT_BVH_COUNT).
+// The counting build's tallies since the last call, then reset: the
+// expansions of closest, blocked and contain, then the boxes each tested,
+// then the spheres (zeros unless built with -DRT_BVH_COUNT).
 extern "C" void raytpu_bvh_counts_host(long long* out) {
 #ifdef RT_BVH_COUNT
   for (int q = 0; q < N_QUERIES; ++q) {
-    out[q] = bvh_counts.boxes[q];
-    out[N_QUERIES + q] = bvh_counts.spheres[q];
+    out[q] = bvh_counts.expansions[q];
+    out[N_QUERIES + q] = bvh_counts.boxes[q];
+    out[2 * N_QUERIES + q] = bvh_counts.spheres[q];
   }
   bvh_counts = BvhCounts{};
 #else
-  for (int q = 0; q < 2 * N_QUERIES; ++q) out[q] = 0;
+  for (int q = 0; q < 3 * N_QUERIES; ++q) out[q] = 0;
 #endif
 }
 

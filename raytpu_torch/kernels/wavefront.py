@@ -216,6 +216,22 @@ def _level_result(em, children, sel, return_sel: bool):
     return (em, children, sel) if return_sel else (em, children)
 
 
+def _check_bvh(bvh: Bvh, n_spheres: int, device):
+    """K3 reads the tree's box rows four columns (16 bytes) a load."""
+    boxes, order = bvh.boxes, bvh.order
+    if (tuple(boxes.shape) != (6, 2 * bvh.n_leaves) or boxes.dtype != torch.float32
+            or tuple(order.shape) != (n_spheres,) or order.dtype != torch.int32):
+        raise ValueError(f"the tree has boxes {boxes.dtype} {tuple(boxes.shape)} "
+                         f"and order {order.dtype} {tuple(order.shape)}, expected "
+                         f"float32 (6, {2 * bvh.n_leaves}) and int32 ({n_spheres},)")
+    if boxes.device != device or order.device != device:
+        raise ValueError(f"the tree must lie on {device}")
+    if not (boxes.is_contiguous() and order.is_contiguous()):
+        raise ValueError("the tree's boxes and order must be contiguous")
+    if boxes.data_ptr() % 16:
+        raise ValueError("the tree's boxes must start on a 16-byte boundary")
+
+
 def wf_level(scene, state, spawn: bool, tables=None, bvh: Bvh | None = None,
              return_sel: bool = False):
     """One bounce level over the (10, R) state: (emissions (3, R),
@@ -239,6 +255,7 @@ def wf_level(scene, state, spawn: bool, tables=None, bvh: Bvh | None = None,
         return _level_result(em, children, sel, return_sel)
     spheres_tbl, lights_tbl, bg_tbl = tables or scene_tables(scene)
     bvh = bvh or build_bvh(spheres_tbl, lights_tbl)
+    _check_bvh(bvh, scene.spheres.count, device)
     fn = WF_LEVEL.function()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(spheres_tbl.data_ptr(), scene.spheres.count, lights_tbl.data_ptr(),

@@ -5,6 +5,8 @@
         --a OLD/raytpu_torch/csrc/trace_bwd.cu --config config3
     python -m raytpu_torch.tools.kernel_ab --kernel wf_compact \
         --a OLD/raytpu_torch/csrc/wf_compact.cu
+    python -m raytpu_torch.tools.kernel_ab --kernel wf_level \
+        --a OLD/raytpu_torch/csrc/wf_level.cu
 
 --b defaults to this checkout's source of the kernel.  Both are built with
 the port's nvcc flags (a source's local headers are read from its own
@@ -24,6 +26,11 @@ level.  A source with the entries raytpu_wf_count and raytpu_wf_scatter
 is the two-pass design (a count kernel, torch.cumsum of the block counts,
 a scatter kernel) and is driven as its wrapper drove it; one with
 raytpu_wf_compact and raytpu_wf_compact_tail is the single-pass design.
+For the level kernel (wf_level, K3 with its BVH walk) it traces the same
+chunk level by level with this checkout's K3 and K5 and times the 7
+levels' K3 launches through each source, without and with the selections
+`sel` (the forward and the training path), after checking that the two
+give bit-identical emissions, children and `sel` at every level.
 Each timing is 30 runs back to back, in the order A, B, B, A for each
 pair, with CUDA events; the script prints the card, each build's ptxas
 resources and every time.  Compare two sources only within one run: cards
@@ -44,7 +51,7 @@ from raytpu_torch.kernels import trace_cuda, wavefront
 from raytpu_torch.scene import default_scene, random_scene, scene_leaves
 
 _KERNELS = {"trace_fwd": trace_cuda, "trace_bwd": trace_cuda,
-            "wf_compact": wavefront}
+            "wf_compact": wavefront, "wf_level": wavefront}
 
 
 def _kernel(which: str, name: str, source: str):
@@ -140,8 +147,10 @@ def _compactor(kernel):
     return lambda *a: _run("wf_compact", kernel, lambda: wavefront.compact(*a))
 
 
-def _compact_ab(kernels, pairs: int):
-    """A/B the compaction over config 5's chunk 0, every level."""
+def _chunk0():
+    """Config 5's scene, tables and tree, its chunk 0 traced level by level
+    with this checkout's K3 and K5: [(state, pid)] of the 7 levels, the
+    (children, pid, keep) of the 6 compactions, and the slots a chunk."""
     from raytpu_torch import render
 
     dev = torch.device("cuda:0")
@@ -153,12 +162,44 @@ def _compact_ab(kernels, pairs: int):
         c5, render.WF_AUTO_CHUNK, render.WF_AUTO_LADDER[0])
     state, pid = wavefront.chunk_camera_state(c5, chunk, n_chunks, 0,
                                               c5.num_pixels, device=dev)
-    levels = []
+    states, levels = [state], []
     for _ in range(c5.max_depth):
         _, kids = wavefront.wf_level(scene, state, True, tables, bvh)
         keep = min(2 * state.shape[1], cap)
         levels.append((kids, pid, keep))
         state, pid = wavefront.compact(kids, pid, keep, ws)[:2]
+        states.append(state)
+    return scene, tables, bvh, states, levels, ws
+
+
+def _level_ab(kernels, pairs: int):
+    """A/B the level kernel over config 5's chunk 0, every level."""
+    scene, tables, bvh, states, _, _ = _chunk0()
+    last = len(states) - 1
+
+    def levels(label, with_sel):
+        return [_run("wf_level", kernels[label],
+                     lambda: wavefront.wf_level(scene, st, i < last, tables, bvh,
+                                                return_sel=with_sel))
+                for i, st in enumerate(states)]
+
+    for with_sel in (False, True):
+        path = "training path (with sel)" if with_sel else "forward path"
+        same = all(all((x is None and y is None) or torch.equal(x, y)
+                       for x, y in zip(a, b))
+                   for a, b in zip(levels("A", with_sel), levels("B", with_sel)))
+        print(f"config5 chunk 0, {len(states)} levels, {path}: A and B "
+              f"bit-identical: {same}")
+        for _ in range(pairs):
+            for label in ("A", "B", "B", "A"):
+                ms = _ms(lambda: levels(label, with_sel))
+                print(f"config5 chunk 0 wf_level {label} ({path}): "
+                      f"{ms:.4f} ms/chunk")
+
+
+def _compact_ab(kernels, pairs: int):
+    """A/B the compaction over config 5's chunk 0, every level."""
+    _, _, _, _, levels, ws = _chunk0()
     fns = {label: _compactor(k) for label, k in kernels.items()}
     for dst in (False, True):
         path = "training path (with dst)" if dst else "forward path"
@@ -184,7 +225,8 @@ def main(argv=None) -> int:
                     help="the kernel's source, version B (default: this checkout)")
     ap.add_argument("--config", nargs="+", default=["config3", "golden"],
                     choices=sorted(BENCH_CONFIGS),
-                    help="the dense kernels' frames (wf_compact: config 5)")
+                    help="the dense kernels' frames (wf_compact, wf_level: "
+                         "config 5)")
     ap.add_argument("--pairs", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -201,8 +243,8 @@ def main(argv=None) -> int:
         res = [line.strip() for line in k.build_log.splitlines()
                if "registers" in line or "spill" in line]
         print(f"{label} {k.source}: {res}")
-    if which == "wf_compact":
-        _compact_ab(kernels, args.pairs)
+    if which in ("wf_compact", "wf_level"):
+        (_compact_ab if which == "wf_compact" else _level_ab)(kernels, args.pairs)
         return 0
     unit = "frame" if which == "trace_fwd" else "call"
     for key in args.config:

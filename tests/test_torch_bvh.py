@@ -7,8 +7,10 @@ for bit:
 
   * each query (closest hit with its t, shadow blocked, container) through
     the tree against the loops over every sphere, on seeded rays of the
-    default scene, random_scene(24), random_scene(256, seed=3) and 3000
-    spheres, and on adversarial ones: tangent rays, origins exactly on a
+    default scene and random scenes of 1, 2, 5, 24, 256, 600 and 3000
+    spheres (every start of the walk four children at a time: leaves an
+    even or odd number of levels down, or the root a leaf), and on
+    adversarial ones: tangent rays, origins exactly on a
     surface, shadow origins on their own sphere, zero direction
     components, duplicated spheres (t ties, visited in either order),
     points on container and box boundaries, and rays grazing spheres of
@@ -19,7 +21,9 @@ for bit:
   * the level backward (K4) from K3's `sel` against K4 re-running the
     loops: the state cotangents and every gradient table;
   * the tree's build: every sphere in exactly one leaf, every box holding
-    its inflated spheres and its children.
+    its inflated spheres and its children;
+  * the counting build (-DRT_BVH_COUNT): each query expands about one node
+    for every four boxes it tests, the wide walk's engagement.
 """
 
 import ctypes
@@ -44,10 +48,18 @@ CSRC = Path(__file__).resolve().parent.parent / "raytpu_torch" / "csrc"
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 CLOSEST, BLOCKED, CONTAIN = 0, 1, 2
 
+# Trees whose leaves lie L = log2(n_leaves) levels down, each start of the
+# walk: L = 0 (one sphere, the root is the leaf), 1 (2 spheres, and the
+# default scene's 3), 2 (5 spheres), 4 (random24), 8 (random256), 9
+# (random600), 11 (random3000); the small scenes drawn close to the camera.
 SCENES = {
     "default": lambda: tscene.default_scene(device="cpu"),
+    "random1": lambda: tscene.random_scene(1, seed=3, spread=4.0, device="cpu"),
+    "random2": lambda: tscene.random_scene(2, seed=3, spread=4.0, device="cpu"),
+    "random5": lambda: tscene.random_scene(5, seed=3, spread=8.0, device="cpu"),
     "random24": lambda: tscene.random_scene(24, device="cpu"),
     "random256": lambda: tscene.random_scene(256, seed=3, device="cpu"),
+    "random600": lambda: tscene.random_scene(600, seed=3, device="cpu"),
     "random3000": lambda: tscene.random_scene(3000, seed=3, device="cpu"),
 }
 
@@ -59,16 +71,21 @@ def host(tmp_path_factory):
         pytest.skip("needs g++ to build the CPU harness of the CUDA sources")
     out = tmp_path_factory.mktemp("bvh")
     libs = {}
-    for name in ("wf_level", "wf_level_bwd"):
+    for name, src, flags in (("wf_level", "wf_level", []),
+                             ("wf_level_bwd", "wf_level_bwd", []),
+                             ("wf_level_count", "wf_level", ["-DRT_BVH_COUNT"])):
         path = out / f"lib{name}_host.so"
         subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
-                        "-shared", "-fPIC", "-o", str(path), str(CSRC / f"{name}.cu")],
+                        *flags, "-shared", "-fPIC", "-o", str(path),
+                        str(CSRC / f"{src}.cu")],
                        check=True, capture_output=True, text=True)
         libs[name] = ctypes.CDLL(str(path))
-    level = libs["wf_level"]
-    level.raytpu_wf_level_host.argtypes = [_P, _I, _P, _I, _P, _P, _P, _I, _P, _LL,
-                                           _I, _P, _P, _P]
-    level.raytpu_bvh_query_host.argtypes = [_P, _I, _P, _P, _I, _I, _P, _LL, _P, _P]
+    for level in (libs["wf_level"], libs["wf_level_count"]):
+        level.raytpu_wf_level_host.argtypes = [_P, _I, _P, _I, _P, _P, _P, _I, _P,
+                                               _LL, _I, _P, _P, _P]
+        level.raytpu_bvh_query_host.argtypes = [_P, _I, _P, _P, _I, _I, _P, _LL,
+                                                _P, _P]
+        level.raytpu_bvh_counts_host.argtypes = [_P]
     libs["wf_level_bwd"].raytpu_wf_level_bwd_host.argtypes = [
         _P, _I, _P, _I, _P, _P, _LL, _I, _P, _P, _P, _P, _P]
     return libs
@@ -337,7 +354,7 @@ def test_tree_build(name):
         assert (tree.boxes[3:6, k] >= tree.boxes[3:6, child]).all()
 
 
-def host_level(host, ts, st, spawn, tree):
+def host_level(host, ts, st, spawn, tree, lib="wf_level"):
     """The g++ build of K3 over the state: (em, children, sel); tree None:
     the brute-force loops."""
     rays = st.shape[1]
@@ -345,7 +362,7 @@ def host_level(host, ts, st, spawn, tree):
     em = torch.full((3, rays), float("nan"))
     kids = torch.full((N_STATE, 2 * rays), float("nan"))
     sel = torch.full((sel_rows(ts.lights.count), rays), -7, dtype=torch.int32)
-    host["wf_level"].raytpu_wf_level_host(
+    host[lib].raytpu_wf_level_host(
         spheres.data_ptr(), ts.spheres.count, lights.data_ptr(), ts.lights.count,
         bg.data_ptr(), tree.boxes.data_ptr() if tree else None,
         tree.order.data_ptr() if tree else None, tree.n_leaves if tree else 0,
@@ -358,12 +375,14 @@ def bits(t):
     return t.view(torch.int32)
 
 
-@pytest.mark.parametrize("name,spawn", [("default", True), ("random24", True),
-                                        ("random24", False), ("random256", True),
+@pytest.mark.parametrize("name,spawn", [("default", True), ("random1", True),
+                                        ("random2", True), ("random5", True),
+                                        ("random24", True), ("random24", False),
+                                        ("random256", True), ("random600", True),
                                         ("random3000", True)])
 def test_level_through_the_tree_is_bit_identical(host, name, spawn):
     ts = SCENES[name]()
-    rays = 2048 if name == "random3000" else 8192
+    rays = {"random600": 4096, "random3000": 2048}.get(name, 8192)
     st = torch.from_numpy(seeded_states(ts, seed=2)[:, :rays].copy())
     spheres, lights, _ = scene_tables(ts)
     em, kids, sel = host_level(host, ts, st, spawn, build_bvh(spheres, lights))
@@ -379,6 +398,28 @@ def test_level_through_the_tree_is_bit_identical(host, name, spawn):
     assert (sel[2, live] != 0).any()
     if spawn:
         assert (sel[1, live] >= 0).any()
+
+
+def test_counting_build_expands_once_for_four_boxes(host):
+    """K3 through the counting build on random256's seeded states: each
+    query's expansions, boxes and spheres (raytpu_bvh_counts_host's 9
+    numbers); the walk four children at a time expands at most 0.3 nodes a
+    box test (a binary walk: 1), and its answers are the plain build's."""
+    ts = SCENES["random256"]()
+    st = torch.from_numpy(seeded_states(ts, seed=2))
+    spheres, lights, _ = scene_tables(ts)
+    tree = build_bvh(spheres, lights)
+    out = (ctypes.c_longlong * 9)()
+    lib = host["wf_level_count"]
+    lib.raytpu_bvh_counts_host(out)  # reset
+    counted = host_level(host, ts, st, True, tree, lib="wf_level_count")
+    lib.raytpu_bvh_counts_host(out)
+    expansions, boxes, spheres_tested = out[0:3], out[3:6], out[6:9]
+    for q in (CLOSEST, BLOCKED, CONTAIN):
+        assert boxes[q] > 0 and spheres_tested[q] > 0
+        assert expansions[q] <= 0.3 * boxes[q], (q, expansions[q], boxes[q])
+    for a, b in zip(counted, host_level(host, ts, st, True, tree)):
+        assert torch.equal(bits(a), bits(b))
 
 
 @pytest.mark.parametrize("name,spawn", [("default", True), ("random24", True),

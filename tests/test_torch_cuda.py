@@ -19,7 +19,9 @@ tests/test_wavefront.py:196-219's (every leaf within 2e-3*scale), also
 over checkpointed chunks on side streams.  The
 level kernel through its BVH and the level backward from the saved
 selections are held to their brute-force reference instances bit for bit
-(the backward's atomically summed tables within 1e-5 x scale), and the
+(the backward's atomically summed tables within 1e-5 x scale; at 5000
+spheres, which the reference instance refuses, K3 to its own per-ray
+function built by g++ over the loops), and the
 dense backward to its reference instance (the previous design) within
 1e-5 x scale.  Beyond the dense kernels' bounds (depth above MAX_DEPTH,
 more than MAX_SPHERES spheres or MAX_LIGHTS lights) "auto" renders and
@@ -572,6 +574,108 @@ def test_level_kernel_through_the_tree_matches_its_reference(dev, n_spheres):
             assert torch.equal(_bits(a), _bits(b))
         assert (got[2][0] >= 0).any()
         state, pid = wavefront.compact(got[1], pid, min(2 * state.shape[1], cap), ws)[:2]
+
+
+def test_level_kernel_on_config5_chunk0_matches_its_reference(dev):
+    """Config 5's chunk 0 (4,202,496 camera rays of random_scene(256,
+    seed=3), the tree staged in shared memory): K3 against its brute-force
+    reference instance bit for bit, emissions, children and sel, at levels
+    0 and 3."""
+    from raytpu_torch import render
+
+    c5 = BENCH_CONFIGS["config5"]
+    scene = random_scene(256, seed=3, device=dev)
+    tables = trace_cuda.scene_tables(scene)
+    bvh = wavefront.build_bvh(*tables[:2])
+    chunk, ws, cap, n = wavefront.wavefront_sizes(c5, render.WF_AUTO_CHUNK,
+                                                  render.WF_AUTO_LADDER[0])
+    state, pid = wavefront.chunk_camera_state(c5, chunk, n, 0, c5.num_pixels,
+                                              device=dev)
+    for level in range(4):
+        got = wavefront.wf_level(scene, state, True, tables, bvh, return_sel=True)
+        if level in (0, 3):
+            want = wavefront.wf_level_reference(scene, state, True, tables,
+                                                return_sel=True)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(_bits(a), _bits(b)), level
+            assert (got[2][0] >= 0).any() and (got[2][0] < 0).any()
+        state, pid = wavefront.compact(got[1], pid, min(2 * state.shape[1], cap), ws)[:2]
+
+
+@pytest.fixture(scope="module")
+def level_host(tmp_path_factory):
+    """raytpu_wf_level_host: wf_level.cu built by g++ as plain C++, K3's
+    per-ray function on the CPU (null boxes: the loops over every sphere)."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the CPU harness of the CUDA sources")
+    lib_path = tmp_path_factory.mktemp("wf_level") / "libwf_level_host.so"
+    subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-o", str(lib_path),
+                    str(trace_cuda.CSRC / "wf_level.cu")],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib_path)).raytpu_wf_level_host
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, i, p, i, p, p, p, i, p, ll, i, p, p, p]
+    fn.restype = None
+    return fn
+
+
+def test_level_kernel_reading_in_place_matches_the_loops(dev, level_host):
+    """5000 spheres: K3 reads the scene table and the tree in place (its
+    third instance), where the reference instance, which stages the table,
+    refuses the scene; so K3 is held bit for bit to its own per-ray
+    function built by g++ over the loops of every sphere (emissions,
+    children, sel), over two levels."""
+    scene = random_scene(5000, seed=3, device=dev)
+    cfg = RenderConfig(width=32, height=16, max_depth=2, alias_factor=2)
+    chunk, ws, cap, n = wavefront.wavefront_sizes(cfg, 4096, 2)
+    state, pid = wavefront.chunk_camera_state(cfg, chunk, n, 0, cfg.num_pixels,
+                                              device=dev)
+    sp, li, bg = (t.cpu().contiguous() for t in trace_cuda.scene_tables(scene))
+    with pytest.raises(ValueError):
+        wavefront.wf_level_reference(scene, state, True)
+    for _ in range(2):
+        got = wavefront.wf_level(scene, state, True, return_sel=True)
+        st = state.cpu().contiguous()
+        rays = st.shape[1]
+        want = (torch.empty((3, rays)), torch.empty((wavefront.N_STATE, 2 * rays)),
+                torch.empty((wavefront.sel_rows(scene.lights.count), rays),
+                            dtype=torch.int32))
+        level_host(sp.data_ptr(), scene.spheres.count, li.data_ptr(),
+                   scene.lights.count, bg.data_ptr(), None, None, 0, st.data_ptr(),
+                   rays, 1, *(t.data_ptr() for t in want))
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a.cpu()), _bits(b))
+        assert (got[2][0] >= 0).any()
+        state, pid = wavefront.compact(got[1], pid, min(2 * rays, cap), ws)[:2]
+
+
+def test_level_kernel_refuses_a_misaligned_tree(dev):
+    """K3 reads four box columns a 16-byte load: the wrapper raises on boxes
+    that start off a 16-byte boundary and takes an aligned copy."""
+    scene = random_scene(32, seed=3, device=dev)
+    tables = trace_cuda.scene_tables(scene)
+    bvh = wavefront.build_bvh(*tables[:2])
+    _, _, _, (state, _) = _level_states(scene, dev)
+    buf = torch.empty(bvh.boxes.numel() + 1, device=dev)
+    shifted = buf[1:].view(bvh.boxes.shape)
+    shifted.copy_(bvh.boxes)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte"):
+        wavefront.wf_level(scene, state, True, tables,
+                           dataclasses.replace(bvh, boxes=shifted))
+    aligned = buf[:-1].view(bvh.boxes.shape)
+    aligned.copy_(bvh.boxes)
+    got = wavefront.wf_level(scene, state, True, tables,
+                             dataclasses.replace(bvh, boxes=aligned), return_sel=True)
+    want = wavefront.wf_level(scene, state, True, tables, bvh, return_sel=True)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("spawn", [True, False])
