@@ -1,0 +1,10 @@
+"""k3_ms.train: K3's (csrc/wf_level.cu with bvh.cuh) device time a step, in
+ms, by kernel name, in the fit cells judged by train_mrays_per_s; the mean
+over ranks."""
+
+from benchmark.trace import K3
+
+
+def read(view):
+    ms = view.mean_over_ranks(lambda s: view.per_step_ms(s, view.kernel_ns(s, K3)))
+    return ms or None

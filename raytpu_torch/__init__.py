@@ -12,6 +12,7 @@ Public surface:
     raytpu_torch.config     RenderConfig, BENCH_CONFIGS
     raytpu_torch.device     the default device: this process's card
     raytpu_torch.scene      Scene / Spheres / Lights / Medium dataclasses, builders
+                            (the SPD sphereflake among them)
     raytpu_torch.scene_io   JSON scene files (raytpu's schema)
     raytpu_torch.image      tone mapping + PPM I/O (golden-image contract)
     raytpu_torch.trace      eager bounce-tree tracer + camera model
@@ -53,11 +54,11 @@ from raytpu_torch.parallel import (gather_image, initialize_distributed,
                                    make_mesh)
 from raytpu_torch.render import (DroppedRaysError, render_sharded, render_single,
                                  render_timed, resolve_backend)
-from raytpu_torch.scene import (Lights, Medium, Scene, Spheres, build_scene,
-                                default_scene, make_material, random_scene,
-                                scene_from_leaves, scene_from_numpy,
-                                scene_leaves, scene_to_numpy,
-                                single_sphere_scene)
+from raytpu_torch.scene import (SPHEREFLAKE_VIEW, Lights, Medium, Scene, Spheres,
+                                build_scene, default_scene, make_material,
+                                random_scene, scene_from_leaves,
+                                scene_from_numpy, scene_leaves, scene_to_numpy,
+                                single_sphere_scene, sphereflake_scene)
 from raytpu_torch.scene_io import load_scene, save_scene
 from raytpu_torch.trace import camera_rays, render_image, render_pixels, trace_rays
 from raytpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -69,7 +70,8 @@ __all__ = [
     "RenderConfig", "BENCH_CONFIGS",
     "Scene", "Spheres", "Lights", "Medium",
     "build_scene", "default_scene", "make_material", "random_scene",
-    "single_sphere_scene", "scene_from_numpy", "scene_to_numpy",
+    "sphereflake_scene", "SPHEREFLAKE_VIEW", "single_sphere_scene",
+    "scene_from_numpy", "scene_to_numpy",
     "scene_leaves", "scene_from_leaves",
     "load_scene", "save_scene",
     "render_image", "render_pixels", "trace_rays", "camera_rays",

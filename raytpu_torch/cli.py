@@ -4,6 +4,8 @@ Examples:
   python -m raytpu_torch.cli -o out.ppm                # golden 800x600 d5 render
   python -m raytpu_torch.cli --width 640 --height 480 --max-depth 4 --time
   python -m raytpu_torch.cli --scene random --num-spheres 256 -o big.ppm
+  python -m raytpu_torch.cli --scene sphereflake -o balls.ppm
+                                           # Haines' SPD "balls", level 4, its view
   python -m raytpu_torch.cli --scene random --num-spheres 256 --seed 3 \
       --width 1920 --height 1080 --max-depth 6 --backend wavefront \
       --strict-drops -o config5.ppm           # BASELINE config 5
@@ -50,25 +52,35 @@ from raytpu_torch.parallel.mesh import (describe_devices, initialize_distributed
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="raytpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--width", type=int, default=800)
-    p.add_argument("--height", type=int, default=600)
+    p.add_argument("--width", type=int, default=None,
+                   help="default 800, or the scene's view (sphereflake: 512)")
+    p.add_argument("--height", type=int, default=None,
+                   help="default 600, or the scene's view (sphereflake: 512)")
     p.add_argument("--zoom", type=float, default=-4.0)
     p.add_argument("--alias-factor", type=int, default=3)
     p.add_argument("--max-depth", type=int, default=5)
     p.add_argument("--chunk-pixels", type=int, default=8192,
                    help="pixel chunk of the eager tracer (memory bound only)")
-    p.add_argument("--scene", choices=["default", "single", "random"],
-                   default="default")
+    p.add_argument("--scene", choices=["default", "single", "random",
+                                       "sphereflake"],
+                   default="default",
+                   help="sphereflake: Haines' SPD \"balls\" at --level, "
+                        "rendered at the SPD's view (--width and --height "
+                        "override its size)")
     p.add_argument("--scene-file", default=None,
                    help="load the scene from a JSON file; overrides --scene")
     p.add_argument("--save-scene", default=None,
                    help="write the active scene as JSON and continue")
     p.add_argument("--num-spheres", type=int, default=64,
                    help="sphere count for --scene random")
+    p.add_argument("--level", type=int, default=4,
+                   help="size factor for --scene sphereflake (4: 7,381 "
+                        "spheres, the SPD's default)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--bg-opacity", type=float, default=0.0,
+    p.add_argument("--bg-opacity", type=float, default=None,
                    help="background-medium opacity (undefined in the "
-                        "reference; see raytpu_torch.scene.Medium)")
+                        "reference; see raytpu_torch.scene.Medium); default "
+                        "the scene's own (0, sphereflake 1)")
     p.add_argument("-o", "--output", default=None, help="output PPM path")
     p.add_argument("--time", action="store_true", dest="timeit",
                    help="print timing and Mrays/s as JSON (CUDA events on "
@@ -156,9 +168,14 @@ def make_scene(args, device):
         built = S.single_sphere_scene(device=device)
     elif args.scene == "random":
         built = S.random_scene(args.num_spheres, seed=args.seed, device=device)
+    elif args.scene == "sphereflake":
+        built = S.sphereflake_scene(args.level, device=device)
     else:
         built = S.default_scene(device=device)
-    # --bg-opacity applies to every generated scene; files carry their own.
+    # --bg-opacity, where given, applies to every generated scene; files
+    # carry their own.
+    if args.bg_opacity is None:
+        return built
     opacity = torch.tensor(args.bg_opacity, dtype=torch.float32, device=device)
     return dataclasses.replace(built, bg=dataclasses.replace(built.bg,
                                                              opacity=opacity))
@@ -215,10 +232,24 @@ def _oracle_image(args, scene, cfg):
                          fresnel_double=args.fresnel_double)
 
 
+def render_config(args) -> RenderConfig:
+    """The flags' RenderConfig: the image plane, and the size not given,
+    are the sphereflake's SPD view for --scene sphereflake (without
+    --scene-file), else 800x600 on a 16x12 plane."""
+    from raytpu_torch.scene import SPHEREFLAKE_VIEW
+
+    view = (SPHEREFLAKE_VIEW if args.scene == "sphereflake" and not args.scene_file
+            else RenderConfig())
+    return RenderConfig(width=view.width if args.width is None else args.width,
+                        height=view.height if args.height is None else args.height,
+                        image_world_width=view.image_world_width,
+                        image_world_height=view.image_world_height,
+                        zoom=args.zoom, alias_factor=args.alias_factor,
+                        max_depth=args.max_depth, chunk_pixels=args.chunk_pixels)
+
+
 def _render(args, device) -> int:
-    cfg = RenderConfig(width=args.width, height=args.height, zoom=args.zoom,
-                       alias_factor=args.alias_factor, max_depth=args.max_depth,
-                       chunk_pixels=args.chunk_pixels)
+    cfg = render_config(args)
     scene = make_scene(args, device)
     mesh = make_mesh(device) if args.sharded and not args.oracle else None
     lead = mesh is None or mesh.rank == 0  # the one rank that writes files

@@ -74,6 +74,31 @@ namespace {
 using namespace rt;
 
 constexpr int kStateIn = 10;  // ox oy oz dx dy dz ir ig ib medium-index
+constexpr size_t kSmemMax = 232448;  // shared memory one block may use
+
+// n floats rounded up to a multiple of 4: 16 bytes.
+RT_HD int align4(int n) { return (n + 3) & ~3; }
+
+size_t table_bytes(int n_spheres, int n_lights) {
+  return sizeof(float) *
+         (size_t)(SCENE_ROWS * n_spheres + LIGHT_ROWS * n_lights + BG_ROWS);
+}
+
+// The table padded to 16 bytes, then the tree: what instance 1 stages.
+size_t staged_bytes(int n_spheres, int n_lights, int n_leaves) {
+  return sizeof(float) * (size_t)align4(SCENE_ROWS * n_spheres +
+                                        LIGHT_ROWS * n_lights + BG_ROWS) +
+         sizeof(float) * (size_t)(BOX_ROWS * 2 * n_leaves) +
+         sizeof(int) * (size_t)n_spheres;
+}
+
+// The instance raytpu_wf_level launches for the scene and its tree: 1 where
+// the table and the tree fit in shared memory, 2 where the table alone
+// fits, else 3 (the table read in place from global memory).
+int level_instance(int n_spheres, int n_lights, int n_leaves) {
+  if (staged_bytes(n_spheres, n_lights, n_leaves) <= kSmemMax) return 1;
+  return table_bytes(n_spheres, n_lights) <= kSmemMax ? 2 : 3;
+}
 
 // The query policy Q, recording which lights were unblocked into the ray's
 // bit words bits[(l / 32) * stride] (zeroed by the caller) when bits is
@@ -163,6 +188,13 @@ RT_HD void level_ray(const SceneView& sc, const Q& q,
 
 }  // namespace
 
+// The instance raytpu_wf_level launches for n_spheres spheres, n_lights
+// lights and a tree of n_leaves leaves (level_instance), in both builds.
+extern "C" int raytpu_wf_level_instance(int n_spheres, int n_lights,
+                                        int n_leaves) {
+  return level_instance(n_spheres, n_lights, n_leaves);
+}
+
 #ifdef __CUDACC__
 
 namespace {
@@ -172,10 +204,6 @@ constexpr int kBlock = 128;
 // fits without spilling; left to itself ptxas gave the BVH instances 80-96
 // and spilled in the third (H100: chunk 0 of config 5 ran 1.02x faster).
 constexpr int kMinBlocks = 7;
-constexpr size_t kSmemMax = 232448;  // shared memory one block may use
-
-// n floats rounded up to a multiple of 4: 16 bytes.
-RT_HD int align4(int n) { return (n + 3) & ~3; }
 
 // kMode 0: the brute-force loops (the reference instance); 1: the BVH
 // staged in shared memory; 2: the BVH read through the read-only cache;
@@ -246,11 +274,6 @@ int launch(const float* scene, int n_spheres, const float* lights,
   return (int)cudaGetLastError();
 }
 
-size_t table_bytes(int n_spheres, int n_lights) {
-  return sizeof(float) *
-         (size_t)(SCENE_ROWS * n_spheres + LIGHT_ROWS * n_lights + BG_ROWS);
-}
-
 }  // namespace
 
 // state (10, R); em (3, R); children (10, 2R) or null when !spawn; sel
@@ -267,21 +290,15 @@ extern "C" int raytpu_wf_level(const float* scene, int n_spheres,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (rays <= 0) return (int)cudaSuccess;
-  const size_t tbl = table_bytes(n_spheres, n_lights);
-  const size_t staged =  // the table padded to 16 bytes, then the tree
-      sizeof(float) * (size_t)align4(SCENE_ROWS * n_spheres +
-                                     LIGHT_ROWS * n_lights + BG_ROWS) +
-      sizeof(float) * (size_t)(BOX_ROWS * 2 * n_leaves) +
-      sizeof(int) * (size_t)n_spheres;
-  if (staged <= kSmemMax) {
-    return launch<1>(scene, n_spheres, lights, n_lights, bg, boxes, order,
-                     n_leaves, state, rays, spawn, em, children, sel, staged,
-                     stream);
-  }
-  if (tbl <= kSmemMax) {
-    return launch<2>(scene, n_spheres, lights, n_lights, bg, boxes, order,
-                     n_leaves, state, rays, spawn, em, children, sel, tbl,
-                     stream);
+  switch (level_instance(n_spheres, n_lights, n_leaves)) {
+    case 1:
+      return launch<1>(scene, n_spheres, lights, n_lights, bg, boxes, order,
+                       n_leaves, state, rays, spawn, em, children, sel,
+                       staged_bytes(n_spheres, n_lights, n_leaves), stream);
+    case 2:
+      return launch<2>(scene, n_spheres, lights, n_lights, bg, boxes, order,
+                       n_leaves, state, rays, spawn, em, children, sel,
+                       table_bytes(n_spheres, n_lights), stream);
   }
   return launch<3>(scene, n_spheres, lights, n_lights, bg, boxes, order,
                    n_leaves, state, rays, spawn, em, children, sel, 0,

@@ -142,7 +142,29 @@ RT_HD void level_ray_bwd(const SceneView& sc, const Q& q, const GradView& G,
   d_state[kDiff * rays + i] = 0.0f;
 }
 
+constexpr size_t kSmemMax = 232448;  // shared memory one block may use
+
+size_t table_bytes(int n_spheres, int n_lights) {
+  return sizeof(float) *
+         (size_t)(SCENE_ROWS * n_spheres + LIGHT_ROWS * n_lights + BG_ROWS);
+}
+
+// The instance the entries launch for the scene's size: 1 where the scene
+// table and the block's gradient table both fit in shared memory, 2 where
+// the scene table alone fits (every term added to the global table), else
+// 3 (the scene table read in place too).
+int bwd_instance(int n_spheres, int n_lights) {
+  const size_t tbl = table_bytes(n_spheres, n_lights);
+  return 2 * tbl <= kSmemMax ? 1 : tbl <= kSmemMax ? 2 : 3;
+}
+
 }  // namespace
+
+// The instance raytpu_wf_level_bwd launches for n_spheres spheres and
+// n_lights lights (bwd_instance), in both builds.
+extern "C" int raytpu_wf_level_bwd_instance(int n_spheres, int n_lights) {
+  return bwd_instance(n_spheres, n_lights);
+}
 
 #ifdef __CUDACC__
 
@@ -213,8 +235,6 @@ wf_level_bwd_kernel(const float* __restrict__ scene, int n_spheres,
   }
 }
 
-constexpr size_t kSmemMax = 232448;  // shared memory one block may use
-
 template <bool kSharedScene, bool kSharedGrad, bool kSaved>
 int launch(const float* scene, int n_spheres, const float* lights,
            int n_lights, const float* bg, const float* state, long long rays,
@@ -231,9 +251,7 @@ int launch(const float* scene, int n_spheres, const float* lights,
   return (int)cudaGetLastError();
 }
 
-// The instance for the scene's size: the scene table and the block's
-// gradient table in shared memory where both fit, else the scene table
-// alone where it fits, else neither.
+// The instance for the scene's size (bwd_instance).
 template <bool kSaved>
 int run(const float* scene, int n_spheres, const float* lights, int n_lights,
         const float* bg, const float* state, long long rays, int spawn,
@@ -242,17 +260,16 @@ int run(const float* scene, int n_spheres, const float* lights, int n_lights,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (rays <= 0) return (int)cudaSuccess;
-  const size_t tbl = sizeof(float) *
-      (size_t)(SCENE_ROWS * n_spheres + LIGHT_ROWS * n_lights + BG_ROWS);
-  if (2 * tbl <= kSmemMax) {
-    return launch<true, true, kSaved>(scene, n_spheres, lights, n_lights, bg,
-                                      state, rays, spawn, em_ct, ch_ct, sel,
-                                      d_state, gout, 2 * tbl, stream);
-  }
-  if (tbl <= kSmemMax) {
-    return launch<true, false, kSaved>(scene, n_spheres, lights, n_lights, bg,
-                                       state, rays, spawn, em_ct, ch_ct, sel,
-                                       d_state, gout, tbl, stream);
+  const size_t tbl = table_bytes(n_spheres, n_lights);
+  switch (bwd_instance(n_spheres, n_lights)) {
+    case 1:
+      return launch<true, true, kSaved>(scene, n_spheres, lights, n_lights,
+                                        bg, state, rays, spawn, em_ct, ch_ct,
+                                        sel, d_state, gout, 2 * tbl, stream);
+    case 2:
+      return launch<true, false, kSaved>(scene, n_spheres, lights, n_lights,
+                                         bg, state, rays, spawn, em_ct, ch_ct,
+                                         sel, d_state, gout, tbl, stream);
   }
   return launch<false, false, kSaved>(scene, n_spheres, lights, n_lights, bg,
                                       state, rays, spawn, em_ct, ch_ct, sel,

@@ -87,7 +87,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from raytpu_torch.config import RenderConfig
-from raytpu_torch.kernels.bvh import Bvh, build_bvh
+from raytpu_torch.kernels.bvh import Bvh, build_bvh, leaf_count
 from raytpu_torch.kernels.trace_cuda import (BG_ROWS, LIGHT_ROWS, SCENE_ROWS,
                                              CudaKernel, _check_scene,
                                              _cuda_device, scene_tables)
@@ -117,7 +117,9 @@ WF_LEVEL = CudaKernel(
     # the brute-force reference instance: scene, n, lights, nl, bg, state,
     # rays, spawn, em, children, sel, device, stream
     entries={"raytpu_wf_level_ref": [_p, _i, _p, _i, _p, _p, _ll, _i, _p, _p,
-                                     _p, _i, _p]})
+                                     _p, _i, _p],
+             # the instance the entry launches: n_spheres, n_lights, n_leaves
+             "raytpu_wf_level_instance": [_i, _i, _i]})
 
 WF_COMPACT = CudaKernel(
     "wf_compact", "wf_compact.cu", "raytpu_wf_compact",
@@ -135,12 +137,34 @@ _LEVEL_BWD_ARGS = [_p, _i, _p, _i, _p, _p, _ll, _i, _p, _p, _p, _p, _p, _i, _p]
 WF_LEVEL_BWD = CudaKernel(
     "wf_level_bwd", "wf_level_bwd.cu", "raytpu_wf_level_bwd", _LEVEL_BWD_ARGS,
     # the reference instance re-running the brute-force queries (sel unread)
-    entries={"raytpu_wf_level_bwd_ref": _LEVEL_BWD_ARGS})
+    entries={"raytpu_wf_level_bwd_ref": _LEVEL_BWD_ARGS,
+             # the instance the entries launch: n_spheres, n_lights
+             "raytpu_wf_level_bwd_instance": [_i, _i]})
+
+# The instance of K3 and of K4 that reads the scene table in place from
+# global memory (K4's adds every gradient term to the global table).
+IN_PLACE = 3
 
 WF_UNCOMPACT = CudaKernel(
     "wf_uncompact", "wf_uncompact.cu", "raytpu_wf_uncompact",
     # d_state, cap, dst, kids, d_children, device, stream
     [_p, _ll, _p, _ll, _p, _i, _p])
+
+
+def level_instance(n_spheres: int, n_lights: int, backward: bool = False) -> int:
+    """The instance K3 (K4 with `backward`) launches for a scene of
+    n_spheres spheres and n_lights lights: its C entry's own choice from
+    the scene's size, asked of its library (raytpu_wf_level_instance,
+    raytpu_wf_level_bwd_instance).  K3: 1, the scene table and
+    the tree staged in shared memory; 2, the table alone; 3 (IN_PLACE),
+    neither.  K4: 1, the scene table and the block's gradient table
+    staged; 2, the scene table alone, every term added to the global
+    table; 3 (IN_PLACE), neither."""
+    if backward:
+        return WF_LEVEL_BWD.function("raytpu_wf_level_bwd_instance")(
+            n_spheres, n_lights)
+    return WF_LEVEL.function("raytpu_wf_level_instance")(
+        n_spheres, n_lights, leaf_count(n_spheres))
 
 
 def _align_up(n: int, m: int) -> int:
@@ -576,6 +600,13 @@ class WfLevelFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, em_ct, ch_ct=None):
         *tables, state, sel = ctx.saved_tensors
+        # K4's slots (wf.bwd_slots), and those of its in-place instance.
+        rays = state.shape[1]
+        profiling.count("wf.bwd_slots", rays)
+        if state.is_cuda and profiling.recording() and level_instance(
+                ctx.scene.spheres.count, ctx.scene.lights.count,
+                backward=True) == IN_PLACE:
+            profiling.count("wf.bwd_slots_inplace", rays)
         d_state, *grads = wf_level_bwd(
             ctx.scene, state, em_ct.contiguous(),
             ch_ct.contiguous() if ctx.spawn else None, ctx.spawn,
@@ -720,6 +751,11 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
         _check_scene(scene, device, bounded=False)
     tables = scene_tables(scene)
     bvh = build_bvh(tables[0], tables[1]) if device.type == "cuda" else None
+    # Whether K3 runs its in-place instance, asked only while the profiler
+    # records (wf.slots_inplace): with it off the count costs one flag read.
+    k3_in_place = (device.type == "cuda" and profiling.recording()
+                   and level_instance(scene.spheres.count,
+                                      scene.lights.count) == IN_PLACE)
     spp = cfg.samples_per_pixel
     chunk, ws, cap, n_chunks = wavefront_sizes(cfg, chunk_rays, capacity_factor,
                                                npix)
@@ -734,8 +770,9 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
         and the live rays it dropped, a 0-d int64 tensor.  It enters its
         own stream, so that a checkpoint's recompute runs there too, and
         keeps nothing outside what it returns and what autograd saves.
-        It counts K3's slots a level (wf.slots) and the live rays among
-        them (wf.live): the camera rays inside the window at level 0, the
+        It counts K3's slots a level (wf.slots), those of its in-place
+        instance (wf.slots_inplace) and the live rays among them
+        (wf.live): the camera rays inside the window at level 0, the
         compaction's kept count after it (a level passed on uncompacted
         counts its slots only)."""
         with _on(side[c % len(side)]):
@@ -748,6 +785,8 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
                 with span("wf.level"):
                     spawn = level < cfg.max_depth
                     profiling.count("wf.slots", state.shape[1])
+                    if k3_in_place:
+                        profiling.count("wf.slots_inplace", state.shape[1])
                     if ad:
                         out = WfLevelFn.apply(scene, spawn, bvh, *tables, state)
                         em, children = out if spawn else (out, None)

@@ -7,7 +7,8 @@
                     Perfetto or TensorBoard.
   * span          — a named span of the program, as a context manager or
                     a decorator; scoped(name) is span(name) as a decorator.
-  * count         — add to a named counter.
+  * count         — add to a named counter; recording says whether one
+                    would be kept.
   * spans, counters, reset — the recorder's read-out.
 
 The recorder is gated on the profiler: while a torch profiler records
@@ -218,6 +219,12 @@ def _fold(held: list) -> list:
     for t in held:
         by_device.setdefault(t.device, []).append(t.to(torch.int64))
     return [torch.stack(ts).sum() for ts in by_device.values()]
+
+
+def recording() -> bool:
+    """Whether a torch profiler records: the flag every span and count
+    reads first, for a count whose value costs work to find."""
+    return _PROFILER._is_profiler_enabled
 
 
 def count(name: str, n=1):

@@ -20,8 +20,10 @@ over checkpointed chunks on side streams.  The
 level kernel through its BVH and the level backward from the saved
 selections are held to their brute-force reference instances bit for bit
 (the backward's atomically summed tables within 1e-5 x scale; at 5000
-spheres, which the reference instance refuses, K3 to its own per-ray
-function built by g++ over the loops), and the
+spheres and on the 7,381-sphere SPD sphereflake, which the reference
+instance refuses, K3 to its own per-ray function built by g++ over the
+loops, and the sphereflake's K4 to its reference under the gradient
+contract, with the counters of the in-place instances), and the
 dense backward to its reference instance (the previous design) within
 1e-5 x scale.  Beyond the dense kernels' bounds (depth above MAX_DEPTH,
 more than MAX_SPHERES spheres or MAX_LIGHTS lights) "auto" renders and
@@ -654,6 +656,119 @@ def test_level_kernel_reading_in_place_matches_the_loops(dev, level_host):
             assert torch.equal(_bits(a.cpu()), _bits(b))
         assert (got[2][0] >= 0).any()
         state, pid = wavefront.compact(got[1], pid, min(2 * rays, cap), ws)[:2]
+
+
+def _flake_camera_state(dev):
+    """The level-4 sphereflake on the card and the 4,096 camera rays of its
+    SPD view at 64x64, alias 1, depth 5 (one chunk)."""
+    from raytpu_torch.scene import SPHEREFLAKE_VIEW, sphereflake_scene
+
+    scene = sphereflake_scene(4, device=dev)
+    cfg = dataclasses.replace(SPHEREFLAKE_VIEW, width=64, height=64,
+                              alias_factor=1, max_depth=5)
+    chunk, ws, cap, n = wavefront.wavefront_sizes(cfg, 4096, 2)
+    state, pid = wavefront.chunk_camera_state(cfg, chunk, n, 0, cfg.num_pixels,
+                                              device=dev)
+    return scene, cfg, state, pid, ws, cap
+
+
+def test_level_kernel_on_the_sphereflake_matches_the_loops(dev, level_host):
+    """The SPD sphereflake's 7,381 spheres: K3's in-place instance (the
+    scene table and a 4,096-leaf tree read from global memory) at every
+    level of a 64x64 depth-5 frame, bit for bit against its own per-ray
+    function built by g++ over the loops of every sphere (emissions,
+    children, sel); the reference instance, which stages the table, refuses
+    the scene, as at 5000 spheres."""
+    scene, cfg, state, pid, ws, cap = _flake_camera_state(dev)
+    assert wavefront.level_instance(scene.spheres.count,
+                                    scene.lights.count) == wavefront.IN_PLACE
+    sp, li, bg = (t.cpu().contiguous() for t in trace_cuda.scene_tables(scene))
+    with pytest.raises(ValueError):
+        wavefront.wf_level_reference(scene, state, True)
+    for level in range(cfg.max_depth + 1):
+        spawn = level < cfg.max_depth
+        got = wavefront.wf_level(scene, state, spawn, return_sel=True)
+        st = state.cpu().contiguous()
+        rays = st.shape[1]
+        want = (torch.empty((3, rays)),
+                torch.empty((wavefront.N_STATE, 2 * rays)) if spawn else None,
+                torch.empty((wavefront.sel_rows(scene.lights.count), rays),
+                            dtype=torch.int32))
+        level_host(sp.data_ptr(), scene.spheres.count, li.data_ptr(),
+                   scene.lights.count, bg.data_ptr(), None, None, 0, st.data_ptr(),
+                   rays, int(spawn), want[0].data_ptr(),
+                   want[1].data_ptr() if spawn else None, want[2].data_ptr())
+        for a, b in zip(got, want):
+            if b is not None:
+                assert torch.equal(_bits(a.cpu()), _bits(b)), level
+        assert (got[2][0] >= 0).any(), level
+        if spawn:
+            state, pid = wavefront.compact(got[1], pid, min(2 * rays, cap), ws)[:2]
+
+
+@pytest.mark.parametrize("spawn", [True, False])
+def test_level_backward_on_the_sphereflake_matches_its_reference(dev, spawn):
+    """K4's in-place instance (every gradient term added to the global
+    table) from K3's selections against its reference instance, which
+    re-runs the brute-force queries, also in place, on the sphereflake's
+    camera rays and their first compacted level: d_state bit for bit, the
+    tables under the gradient contract (rtol 5e-2 where |reference| >
+    1e-3 x scale)."""
+    scene, cfg, state, pid, ws, cap = _flake_camera_state(dev)
+    assert wavefront.level_instance(scene.spheres.count, scene.lights.count,
+                                    backward=True) == wavefront.IN_PLACE
+    _, kids = wavefront.wf_level(scene, state, True)
+    first = wavefront.compact(kids, pid, min(2 * state.shape[1], cap), ws)[0]
+    rng = np.random.default_rng(23)
+    for st in (state, first):
+        rays = st.shape[1]
+        _, _, sel = wavefront.wf_level(scene, st, spawn, return_sel=True)
+        em_ct = torch.tensor(rng.uniform(0.5, 1.5, (3, rays)).astype(np.float32),
+                             device=dev)
+        ch_ct = None
+        if spawn:
+            ch_ct = torch.tensor(rng.uniform(-1, 1, (10, 2 * rays)).astype(np.float32),
+                                 device=dev)
+            ch_ct[9] = 0.0
+        got = wavefront.wf_level_bwd(scene, st, em_ct, ch_ct, spawn, sel=sel)
+        want = wavefront.wf_level_bwd_reference(scene, st, em_ct, ch_ct, spawn)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got[0]), _bits(want[0]))
+        keep = ~(st[6:9] == 0).all(dim=0)
+        assert_level_grads(got, want, keep, st)
+        assert float(got[1].abs().max()) > 0
+
+
+def test_counters_read_the_sphereflakes_in_place_instances(dev):
+    """"auto" trains and renders the sphereflake through the wavefront, and
+    under a profiler every K3 and K4 slot of its steps is counted on the
+    in-place instances (wf.slots_inplace = wf.slots, wf.bwd_slots_inplace
+    = wf.bwd_slots); config 5's 256 spheres, staged, count none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytpu_torch.grad import fit_scene, resolve_train_backend
+    from raytpu_torch.utils import profiling
+
+    scene, cfg, *_ = _flake_camera_state(dev)
+    assert resolve_train_backend("auto", scene, cfg) == "wavefront"
+    assert resolve_backend("auto", scene, cfg) == "wavefront"
+    target = torch.zeros(cfg.num_pixels, 3, device=dev)
+    for scene, in_place in ((scene, True), (random_scene(256, seed=3, device=dev), False)):
+        profiling.reset()
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                fit_scene(scene, cfg, target, steps=2, backend="wavefront")
+            torch.cuda.synchronize(dev)
+            counted = profiling.counters()
+        finally:
+            profiling.reset()
+        assert counted["wf.slots"] > 0 and counted["wf.bwd_slots"] > 0
+        if in_place:
+            assert counted["wf.slots_inplace"] == counted["wf.slots"]
+            assert counted["wf.bwd_slots_inplace"] == counted["wf.bwd_slots"]
+        else:
+            assert "wf.slots_inplace" not in counted
+            assert "wf.bwd_slots_inplace" not in counted
 
 
 def test_level_kernel_refuses_a_misaligned_tree(dev):
