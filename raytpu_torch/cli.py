@@ -29,8 +29,9 @@ or under --cpu the tensor oracle (raytpu_torch.oracle); it ignores
 does.
 --sharded renders over the process group torchrun describes ("nccl" on
 cards, "gloo" with --cpu), or over a world of one without torchrun; rank
-0 writes the PPM and the --time line.  A wavefront render that drops
-live rays warns, or under --strict-drops exits 3.
+0 writes the PPM and the --time line.  More than one rank take the
+interleaved pixel sets, with or without --interleave.  A wavefront render
+that drops live rays warns, or under --strict-drops exits 3.
 """
 
 from __future__ import annotations
@@ -130,9 +131,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sharded", action="store_true",
                    help="split the pixels over the ranks of the process "
                         "group torchrun set up (a world of one without it)")
-    p.add_argument("--interleave", action="store_true",
+    p.add_argument("--interleave", action="store_true", default=None,
                    help="with --sharded: give each rank the strided pixel set "
-                        "{rank + j*ranks} instead of a contiguous block")
+                        "{rank + j*ranks}, which more than one rank takes "
+                        "even without it (a world of one renders the whole "
+                        "frame either way)")
     return p
 
 

@@ -225,7 +225,7 @@ def loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,
 
 @scoped("step.grad")
 def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
-                          backend: str = "auto", interleave: bool = False,
+                          backend: str = "auto", interleave: bool | None = None,
                           wf_opts: dict | None = None, on_drop: str = "raise",
                           return_info: bool = False):
     """The MSE against a (P, 3) target and its scene gradient, with the
@@ -235,10 +235,11 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
     the wavefront, {'wf_opts': the options used}.
 
     P must divide by the number of ranks.  Each rank renders its pixel set
-    (parallel.pixel_set; `interleave` as in render_sharded) through
-    `backend`, resolved for the frame as resolve_train_backend resolves it,
-    and takes the gradient of its share of the frame's mean, sum(err^2) /
-    (3P); one all-reduce then sums the gradient, the loss and the
+    (parallel.pixel_set; `interleave` as in render_sharded: by default the
+    interleaved set on more than one rank, so that the all-reduce waits for
+    no rank's hot block) through `backend`, resolved for the frame as
+    resolve_train_backend resolves it, and takes the gradient of its share
+    of the frame's mean, sum(err^2) / (3P); one all-reduce then sums the gradient, the loss and the
     wavefront's drop count in one buffer (none in a world of one).  A
     dropped live ray biases the gradient, so the summed count is reported
     per `on_drop` ("raise" by default) on every rank alike.  `wf_opts`
@@ -280,7 +281,7 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
 def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
               learning_rate: float = 1e-2, mesh=None, optimizer=None,
               callback=None, trainable=None, backend: str = "auto",
-              interleave: bool = False, wf_opts: dict | None = None,
+              interleave: bool | None = None, wf_opts: dict | None = None,
               on_drop: str = "raise"):
     """Gradient-fit task (BASELINE config 4): optimise the scene's leaves to
     match a (P, 3) linear target.  Returns (scene, losses).
@@ -301,11 +302,14 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
     gradient).  The dense paths drop nothing.
 
     Every step is loss_and_grad_sharded's over `mesh` (default: a world of
-    one on the scene's device; `interleave` as there): each rank holds the
-    whole scene and applies the same summed gradient, and the ladder
-    climbs on the drops summed over the ranks, so every rank takes the
-    same steps.  The backend is resolved for the frame, not the shard, so
-    every rank takes the same backend."""
+    one on the scene's device; `interleave` as there, the interleaved sets
+    on more than one rank unless it is False, since a block leaves one rank
+    with the frame's busiest strip, 1.686x the mean rank's live rays over 4
+    ranks at 1920x1080 3x3): each rank holds the whole scene and applies
+    the same summed gradient, and the ladder climbs on the drops summed
+    over the ranks, so every rank takes the same steps.  The backend is
+    resolved for the frame, not the shard, so every rank takes the same
+    backend."""
     backend = resolve_train_backend(backend, scene, cfg)
     mesh = Mesh(0, 1, scene.device) if mesh is None else mesh
     params = [t.detach().clone().requires_grad_(True)

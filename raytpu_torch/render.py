@@ -33,7 +33,7 @@ from raytpu_torch.kernels.trace_cuda import (dense_takes, render_pixels_cuda,
                                              render_pixels_torch)
 from raytpu_torch.kernels.wavefront import render_pixels_wavefront
 from raytpu_torch.parallel.mesh import (Mesh, all_gather_rows, all_reduce_sum,
-                                        make_mesh, pixel_set)
+                                        interleaved, make_mesh, pixel_set)
 from raytpu_torch.utils.profiling import Timer, scoped
 
 # The "auto" crossover on an NVIDIA H100 80GB HBM3 at 700 W: the wavefront
@@ -188,15 +188,16 @@ def render_single(scene, cfg: RenderConfig, backend: str = "auto",
 @scoped("render.frame")
 def render_sharded(scene, cfg: RenderConfig, mesh=None, backend: str = "auto",
                    wf_opts: dict | None = None, return_info: bool = False,
-                   on_drop: str = "warn", interleave: bool = False):
+                   on_drop: str = "warn", interleave: bool | None = None):
     """Render the frame with its pixels split over the ranks of `mesh`
     (default: make_mesh on the scene's device) -> (H, W, 3) on every rank,
     on the scene's device; with `return_info`, (image, info) as
     render_single's, the drops summed over the ranks.
 
-    Each rank renders its pixel set (parallel.pixel_set): a block, or with
-    `interleave` the strided set {rank + j*size}, which spreads a hot strip
-    over the ranks.  Any P works: the last set's tail repeats pixel P-1 and
+    Each rank renders its pixel set (parallel.pixel_set): by default (None)
+    the strided set {rank + j*size}, which spreads a hot strip over the
+    ranks so that none waits for the busiest block, or with `interleave`
+    False a block.  Any P works: the last set's tail repeats pixel P-1 and
     is cut off.  Pixels are independent, so the frame is the one-device
     frame.  The wavefront's ladder climbs on the drops summed over the
     ranks, read once a rung, so that every rank takes the same rung, and
@@ -234,7 +235,7 @@ def render_sharded(scene, cfg: RenderConfig, mesh=None, backend: str = "auto",
 def render_timed(scene, cfg: RenderConfig, mesh=None, warmup: int = 1,
                  iters: int = 3, backend: str = "auto",
                  wf_opts: dict | None = None, on_drop: str = "warn",
-                 interleave: bool = False):
+                 interleave: bool | None = None):
     """Render a scene and time it (warm-up excluded), returning (image,
     stats).  On a card each frame is timed with CUDA events on the current
     stream, on the CPU by the host clock.  Mrays/s counts camera rays
@@ -244,7 +245,8 @@ def render_timed(scene, cfg: RenderConfig, mesh=None, warmup: int = 1,
     (0 on the other backends).  The wavefront's warm-up settles its
     ladder, and the timed frames reuse its options.  With `mesh`, the
     frame is render_sharded's over it (`interleave` as there), its gather
-    included; `ranks` counts them (1 without).  `device` names the card,
+    included; `ranks` counts them (1 without), and `interleave` says
+    whether their sets were interleaved.  `device` names the card,
     or the CPU."""
     timer = Timer(scene.device)
     backend = resolve_backend(backend, scene, cfg)
@@ -273,6 +275,6 @@ def render_timed(scene, cfg: RenderConfig, mesh=None, warmup: int = 1,
         device=(torch.cuda.get_device_name(scene.device)
                 if scene.device.type == "cuda" else str(scene.device)),
         ranks=mesh.size,
-        interleave=interleave,
+        interleave=interleaved(mesh, interleave),
     )
     return img, stats

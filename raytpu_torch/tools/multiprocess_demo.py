@@ -44,10 +44,11 @@ def _case(name, kind, cfg, backend, interleave=False, scene=("default",),
 
 
 # The CPU suite: the plain versions at tiny frames.  Render frames have an
-# odd P, so the last rank's tail repeats pixel P-1.  "drop" renders and
-# steps a frame whose top half (rank 0's block) misses a transparent sphere
-# that fills the bottom half (rank 1's): at one chunk of 8192 rays and
-# capacity 1, rank 1 alone drops live rays.
+# odd P, so the last rank's tail repeats pixel P-1.  A case's `interleave`
+# None takes the program's default layout.  "drop" renders and steps a
+# frame whose top half (rank 0's block) misses a transparent sphere that
+# fills the bottom half (rank 1's): at one chunk of 8192 rays and capacity
+# 1, rank 1 alone drops live rays.
 SUITES = {
     "cpu": [
         *(_case(f"render_{b}_{m}", "render", (13, 7, 2, 2), b, m == "interleave")
@@ -55,6 +56,8 @@ SUITES = {
         *(_case(f"grad_{b}_{m}", "grad", (24, 16, 2, 1), b, m == "interleave",
                 wf_opts={"chunk_rays": 128} if b == "wavefront" else None)
           for b in ("torch", "wavefront") for m in ("block", "interleave")),
+        _case("grad_wavefront_default", "grad", (24, 16, 2, 1), "wavefront",
+              None, wf_opts={"chunk_rays": 128}),
         _case("fit_torch_block", "fit", (12, 8, 1, 1), "torch", steps=2),
         _case("fit_wavefront_interleave", "fit", (12, 8, 1, 1), "wavefront",
               True, steps=2),

@@ -1044,10 +1044,11 @@ def test_level_kernels_take_a_scene_beyond_shared_memory(dev):
 
 def test_sharded_paths_in_a_world_of_one(dev, capsys):
     """Without a process group, render_sharded is render_single bit for bit
-    (K1, block and interleaved), render_timed(mesh=) and the CLI's
-    --sharded --time report one rank, and loss_and_grad_sharded through K1 +
-    K2 is loss_and_grad's (loss rtol 1e-5, every leaf within 2e-3 x scale:
-    K2 sums with atomics)."""
+    (K1: the default layout, block and interleaved), render_timed(mesh=)
+    and the CLI's --sharded --time report one rank and, as a bool, the
+    layout they used, and loss_and_grad_sharded through K1 + K2 is
+    loss_and_grad's (loss rtol 1e-5, every leaf within 2e-3 x scale: K2
+    sums with atomics)."""
     from raytpu_torch import cli
     from raytpu_torch.grad import loss_and_grad_sharded
     from raytpu_torch.parallel import make_mesh
@@ -1058,23 +1059,27 @@ def test_sharded_paths_in_a_world_of_one(dev, capsys):
     mesh = make_mesh(dev)
     assert (mesh.size, mesh.group) == (1, None)
     one = render_single(scene, cfg, "cuda")
-    for interleave in (False, True):
+    for interleave in (None, False, True):
         assert torch.equal(render_sharded(scene, cfg, mesh, "cuda",
                                           interleave=interleave), one)
     img, stats = render_timed(scene, cfg, backend="wavefront", mesh=mesh,
                               interleave=True)
     assert stats["ranks"] == 1 and stats["dropped"] == 0 and img.shape == one.shape
+    assert stats["interleave"] is True
+    _, stats = render_timed(scene, cfg, mesh=mesh)
+    assert stats["ranks"] == 1 and stats["interleave"] is False
     target = 0.5 * one.reshape(-1, 3)
     loss, grads = loss_and_grad_sharded(scene, cfg, target, mesh, "cuda")
     want_loss, want = loss_and_grad(scene, cfg, target, "cuda")
     assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
     for a, b in zip(scene_leaves(grads), scene_leaves(want)):
         assert float((a - b).abs().max()) <= 2e-3 * max(float(b.abs().max()), 1e-30)
-    assert cli.main(["--width", "64", "--height", "48", "--max-depth", "2",
-                     "--alias-factor", "1", "--sharded", "--interleave",
-                     "--time"]) == 0
-    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert stats["ranks"] == 1 and stats["interleave"] is True
+    for flags, layout in ((["--interleave"], True), ([], False)):
+        assert cli.main(["--width", "64", "--height", "48", "--max-depth", "2",
+                         "--alias-factor", "1", "--sharded", "--time"]
+                        + flags) == 0
+        stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert stats["ranks"] == 1 and stats["interleave"] is layout
 
 
 def test_builders_default_to_the_card(dev, tmp_path):

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import raytpu.config as jconfig
 import raytpu.grad as jgrad
@@ -31,12 +32,14 @@ import raytpu.scene as jscene
 import raytpu.trace as jtrace
 from raytpu.parallel.mesh import make_mesh as jax_mesh
 from raytpu_torch.config import RenderConfig
-from raytpu_torch.grad import loss_and_grad_sharded
+from raytpu_torch.grad import fit_scene, loss_and_grad_sharded
 from raytpu_torch.parallel import (Mesh, initialize_distributed, make_mesh,
                                    pixel_set)
-from raytpu_torch.scene import LEAF_NAMES, default_scene
+from raytpu_torch.parallel.mesh import interleaved
+from raytpu_torch.scene import LEAF_NAMES, default_scene, scene_leaves
 from raytpu_torch.tools import multiprocess_demo as demo
 from raytpu_torch.trace import render_image
+from raytpu_torch.utils.profiling import counters, reset
 
 torch.set_num_threads(2)
 
@@ -83,12 +86,13 @@ def jax_config(case):
 
 
 def test_pixel_sets_cover_the_frame_once():
-    """Every rank's set, block or interleaved, clamped to P-1: together
-    exactly the frame's pixels, each once outside the repeated tail."""
+    """Every rank's set, block, interleaved or the default, clamped to P-1:
+    together exactly the frame's pixels, each once outside the repeated
+    tail."""
     for p in (1, 7, 91, 96):
         cfg = RenderConfig(width=p, height=1)
         for n in (1, 2, 3, 4):
-            for interleave in (False, True):
+            for interleave in (False, True, None):
                 ids = []
                 for r in range(n):
                     offset, count, stride = pixel_set(Mesh(r, n, "cpu"), cfg,
@@ -97,6 +101,62 @@ def test_pixel_sets_cover_the_frame_once():
                     ids += [min(offset + j * stride, p - 1) for j in range(count)]
                 assert sorted(set(ids)) == list(range(p))
                 assert len(ids) - len(set(ids)) == n * count - p
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_pixel_set_interleaves_by_default_on_more_than_one_rank(n):
+    """interleave None: the strided set (rank, per, size) on a mesh of 2 to
+    4 ranks and (0, P, 1) on a world of one; an explicit False gives the
+    block and True the strided set, as before the default changed."""
+    cfg = RenderConfig(width=24, height=16)
+    per = -(-cfg.num_pixels // n)
+    for r in range(n):
+        mesh = Mesh(r, n, "cpu")
+        assert pixel_set(mesh, cfg) == pixel_set(mesh, cfg, None)
+        assert pixel_set(mesh, cfg) == ((r, per, n) if n > 1 else (0, per, 1))
+        assert pixel_set(mesh, cfg, False) == (r * per, per, 1)
+        assert pixel_set(mesh, cfg, True) == (r, per, n)
+        assert interleaved(mesh) is (n > 1)
+        assert interleaved(mesh, False) is False and interleaved(mesh, True) is True
+
+
+def test_the_interleaved_sets_are_counted_on_more_than_one_rank():
+    """mesh.interleaved adds one a pixel_set call that returns an
+    interleaved set over more than one rank, while a profiler records; a
+    world of one, a block and a call outside a profiler add nothing."""
+    cfg = RenderConfig(width=6, height=4)
+    reset()
+    try:
+        pixel_set(Mesh(1, 2, "cpu"), cfg)
+        assert "mesh.interleaved" not in counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            pixel_set(Mesh(0, 1, "cpu"), cfg)
+            pixel_set(Mesh(0, 1, "cpu"), cfg, True)
+            pixel_set(Mesh(2, 3, "cpu"), cfg, False)
+            assert "mesh.interleaved" not in counters()
+            pixel_set(Mesh(1, 2, "cpu"), cfg)
+            assert counters()["mesh.interleaved"] == 1
+            pixel_set(Mesh(3, 4, "cpu"), cfg)
+            pixel_set(Mesh(0, 3, "cpu"), cfg, True)
+        assert counters()["mesh.interleaved"] == 3
+    finally:
+        reset()
+
+
+def test_a_fit_over_a_world_of_one_is_the_same_in_either_layout():
+    """fit_scene over a world of one: the default layout and an explicit
+    interleave=False give bit-identical losses and scenes."""
+    scene = default_scene(device="cpu")
+    cfg = RenderConfig(width=12, height=8, max_depth=1, alias_factor=1)
+    target = torch.rand(cfg.num_pixels, 3,
+                        generator=torch.Generator().manual_seed(5)) * 1e-4
+    fits = [fit_scene(scene, cfg, target, steps=2, mesh=make_mesh("cpu"),
+                      backend="wavefront", wf_opts={"chunk_rays": 64},
+                      **kw) for kw in ({}, {"interleave": False})]
+    (a, la), (b, lb) = fits
+    assert la == lb and len(la) == 2
+    for x, y in zip(scene_leaves(a), scene_leaves(b)):
+        assert torch.equal(x, y)
 
 
 def test_world_of_one_without_a_process_group():
@@ -153,7 +213,8 @@ def test_sharded_gradient_matches_raytpu_sharded(results, targets, name):
     case, r0 = CASES[name], results[0]
     loss, grads = jgrad.loss_and_grad_sharded(
         jscene.default_scene(), jax_config(case), jnp.asarray(targets[name][1]),
-        jax_mesh(jax.devices()[:2]), backend="jnp", interleave=case["interleave"])
+        jax_mesh(jax.devices()[:2]), backend="jnp",
+        interleave=case["interleave"] is not False)  # None: 2 ranks interleave
     np.testing.assert_allclose(float(r0[f"{name}/loss"]), float(loss), rtol=1e-4)
     for leaf, b in zip(LEAF_NAMES, jax.tree_util.tree_leaves(grads)):
         a, b = r0[f"{name}/grad/{leaf}"], np.asarray(b)
@@ -169,6 +230,26 @@ def test_sharded_fit_keeps_the_replicas_identical(results, name):
     assert s["ranks_agree"], "the ranks' fitted scenes differ"
     assert len(s["losses"]) == CASES[name]["steps"]
     assert s["loss_rel_err"] <= 1e-5, s
+
+
+def test_the_default_layout_gradient_is_the_interleaved_one(results):
+    """Over 2 ranks the default layout takes the interleaved sets: its loss
+    and gradient are the interleaved case's bit for bit on every rank, and
+    the block case's within the gradient contract (loss rtol 1e-5, every
+    leaf within 2e-3 x max |block|: the ranks' shares add in another
+    order)."""
+    get = lambda r, case, key: r[f"grad_wavefront_{case}/{key}"]  # noqa: E731
+    keys = ["loss", "dropped"] + [f"grad/{leaf}" for leaf in LEAF_NAMES]
+    for r in results:
+        for key in keys:
+            assert np.array_equal(get(r, "default", key),
+                                  get(r, "interleave", key)), key
+    r0 = results[0]
+    loss, block = float(get(r0, "default", "loss")), float(get(r0, "block", "loss"))
+    assert abs(loss - block) <= 1e-5 * abs(block)
+    for leaf in LEAF_NAMES:
+        a, b = get(r0, "default", f"grad/{leaf}"), get(r0, "block", f"grad/{leaf}")
+        assert np.abs(a - b).max() <= 2e-3 * max(np.abs(b).max(), 1e-30), leaf
 
 
 def test_a_drop_on_one_rank_raises_on_every_rank(results):
