@@ -53,14 +53,14 @@ import traceback
 import torch
 
 from raytpu_torch.config import RenderConfig
-from raytpu_torch.device import local_device
+from raytpu_torch.device import local_device, nvidia_smi_line
 from raytpu_torch.grad import loss_and_grad, resolve_train_backend
 from raytpu_torch.kernels.trace_cuda import (TRACE_BWD, TRACE_FWD,
                                              render_pixels_cuda, scene_tables)
-from raytpu_torch.kernels.wavefront import WF_COMPACT, WF_LEVEL
+from raytpu_torch.kernels.wavefront import (WF_COMPACT, WF_LEVEL,
+                                            WF_LEVEL_BWD, WF_UNCOMPACT)
 from raytpu_torch.render import render_timed
 from raytpu_torch.scene import default_scene, random_scene
-from raytpu_torch.tools.common import card_fields, counted, ms, timed
 from raytpu_torch.utils.profiling import Timer
 
 CONFIG3 = RenderConfig(width=640, height=480, max_depth=4, alias_factor=3)
@@ -74,9 +74,49 @@ PROBE_S = 120     # the device probe's watchdog
 # line: a healthy run took 36 s on an NVIDIA H100 80GB HBM3 at 700 W, 25 s
 # of it the eager forward's four frames.
 DEADLINE_S = 600
-# The main path's kernels, by the names of chip_smoke.py's kernels line.
-KERNELS = {"trace_fwd": TRACE_FWD, "trace_bwd": TRACE_BWD,
-           "wf_level": WF_LEVEL, "wf_compact": WF_COMPACT}
+# Every kernel of the port, by the names of chip_smoke.py's kernels line,
+# and the main path's, whose launches the line counts.
+ALL_KERNELS = {"trace_fwd": TRACE_FWD, "trace_bwd": TRACE_BWD,
+               "wf_level": WF_LEVEL, "wf_compact": WF_COMPACT,
+               "wf_level_bwd": WF_LEVEL_BWD, "wf_uncompact": WF_UNCOMPACT}
+KERNELS = {name: ALL_KERNELS[name]
+           for name in ("trace_fwd", "trace_bwd", "wf_level", "wf_compact")}
+
+
+def card_fields(device) -> dict:
+    """The card's name and power limit as nvidia-smi prints them ("cpu" and
+    None on the CPU)."""
+    if device.type != "cuda":
+        return {"device": str(device), "power_limit": None}
+    return {"device": torch.cuda.get_device_name(device),
+            "power_limit": nvidia_smi_line(device).rsplit(",", 1)[1].strip()}
+
+
+def counted(measure, launches: dict, key: str, kernels: dict = ALL_KERNELS):
+    """measure()'s result; each of `kernels`' launches in it go to
+    launches[key]."""
+    for kernel in kernels.values():
+        kernel.launches = 0
+    out = measure()
+    launches[key] = {name: k.launches for name, k in kernels.items()}
+    return out
+
+
+def timed(fn, timer, reps: int):
+    """(seconds of a first call of fn, [seconds of each of `reps` calls
+    after it]) by `timer`: Timer() for the host clock, each call's CUDA
+    result waited for; Timer(device) for CUDA events on a card."""
+    with timer.section("first") as box:
+        box["value"] = fn()
+    for _ in range(reps):
+        with timer.section("run") as box:
+            box["value"] = fn()
+    times = timer.times()
+    return times["first"][0], times["run"]
+
+
+def ms(times) -> list:
+    return [t * 1e3 for t in times]
 
 
 def metric(cfg: RenderConfig) -> str:

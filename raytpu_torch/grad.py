@@ -21,7 +21,7 @@ Backends, as resolve_train_backend resolves them:
                   the backward's shared memory) or the training crossover
                   measured on the card says so (frames of at least 640x480
                   3x3 camera rays and N x depth >= 256,
-                  render._wf_wins_train), else "cuda";
+                  render.card_train_backend), else "cuda";
                   "torch" on the CPU, and "torch" for a pixel subset `gid`
                   (the whole-frame kernels do not take one).
 
@@ -46,44 +46,24 @@ import numpy as np
 import torch
 
 from raytpu_torch.config import RenderConfig
-from raytpu_torch.kernels.trace_cuda import (SMEM_BYTES, _bwd_shared_bytes,
-                                             dense_takes, pack_pixel_tiles,
+from raytpu_torch.kernels.trace_cuda import (pack_pixel_tiles,
                                              render_pixels_cuda_ad,
                                              render_pixels_torch,
                                              unpack_pixel_tiles)
 from raytpu_torch.kernels.wavefront import render_pixels_wavefront
 from raytpu_torch.parallel.mesh import Mesh, all_reduce_sum, make_mesh, pixel_set
-from raytpu_torch.render import (WF_AUTO_CHUNK_TRAIN, _report_drops,
-                                 _warn_escalate, _wf_auto_trials,
-                                 _wf_wins_train, resolve_backend)
+from raytpu_torch.render import (WF_AUTO_CHUNK, WF_TRAIN_CAPACITY,
+                                 card_train_backend, climb_ladder,
+                                 report_drops, resolve_backend, wf_rungs)
 from raytpu_torch.scene import Scene, scene_from_leaves, scene_leaves
 from raytpu_torch.trace import render_pixels
 from raytpu_torch.utils.profiling import count, scoped, span
-
-# A single wavefront training call's capacity when the caller names none:
-# raytpu's loss_and_grad_wavefront default, above every measured frontier.
-# fit_scene runs the ladder instead.
-WF_TRAIN_CAPACITY = 2.0
-
-
-def card_train_backend(scene, cfg: RenderConfig) -> str:
-    """What "auto" trains `scene` at `cfg` through on a CUDA device,
-    wherever the scene lies: the wavefront where the kernel pair does not
-    take the scene (a depth above MAX_DEPTH, more than MAX_SPHERES spheres
-    or MAX_LIGHTS lights, or 8 (12N + 6L + 5) bytes of shared memory above
-    SMEM_BYTES for the backward kernel) or where the measured training
-    crossover says so, else "cuda"."""
-    n, nl = scene.spheres.count, scene.lights.count
-    if (not dense_takes(scene, cfg) or _bwd_shared_bytes(n, nl) > SMEM_BYTES
-            or _wf_wins_train(n, cfg)):
-        return "wavefront"
-    return "cuda"
 
 
 def resolve_train_backend(backend: str, scene, cfg: RenderConfig,
                           gid=None) -> str:
     """The training backend for `scene` at `cfg`: "auto" on a CUDA scene is
-    card_train_backend's choice.  With a pixel subset `gid`, "auto" is
+    render.card_train_backend's choice.  With a pixel subset `gid`, "auto" is
     "torch": the kernels and the wavefront differentiate whole frames."""
     if backend == "auto" and gid is not None:
         return "torch"
@@ -110,13 +90,13 @@ def _render_ad(scene, cfg: RenderConfig, gid, backend: str,
         offset, count, stride = (0, None, 1) if pixels is None else pixels
         if backend == "cuda":
             return render_pixels_cuda_ad(scene, cfg, offset, count, stride)
-        opts = {"chunk_rays": WF_AUTO_CHUNK_TRAIN,
+        opts = {"chunk_rays": WF_AUTO_CHUNK,
                 "capacity_factor": WF_TRAIN_CAPACITY, **(wf_opts or {})}
         img, i = render_pixels_wavefront(scene, cfg, return_info=True,
                                          offset=offset, count=count,
                                          shard_stride=stride, **opts)
         if info is None:
-            _report_drops(i["dropped"], "raise")
+            report_drops(i["dropped"], "raise")
         else:
             info.update(dropped=i["dropped"], wf_opts=opts)
         return img
@@ -200,7 +180,7 @@ def loss_and_grad_packed(scene, cfg: RenderConfig, target_packed):
 
 
 def loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,
-                            chunk_rays: int = WF_AUTO_CHUNK_TRAIN,
+                            chunk_rays: int = WF_AUTO_CHUNK,
                             capacity_factor: float = WF_TRAIN_CAPACITY,
                             on_drop: str = "raise", return_info: bool = False):
     """The MSE against a (P, 3) target and its scene gradient through the
@@ -271,7 +251,7 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
             parts = [b.reshape(t.shape).to(t.dtype) for b, t in
                      zip(torch.split(buf, [t.numel() for t in parts]), parts)]
         # The dense backends drop nothing, and their step reads nothing back.
-        info["dropped"] = (_report_drops(int(parts.pop()), on_drop)
+        info["dropped"] = (report_drops(int(parts.pop()), on_drop)
                            if "dropped" in info else 0)
         loss_value = parts.pop()
         grads = scene_from_leaves(parts)
@@ -294,7 +274,7 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
 
     The wavefront reads every step's drop count.  Without a
     capacity_factor in `wf_opts` (chunk_rays, capacity_factor, streams) it
-    climbs the training ladder (render.WF_AUTO_LADDER_TRAIN): a step
+    climbs the ladder (render.climb_ladder up render.WF_AUTO_LADDER): a step
     that drops is discarded and re-run at the next capacity (the step is
     stateless, so the retry is exact), and the fit stays at that capacity.
     Drops left at the top of the ladder, or at an explicit capacity, go
@@ -325,25 +305,23 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
     def snapshot():  # the optimizer updates the leaves in place
         return scene_from_leaves([p.detach().clone() for p in params])
 
-    trials = _wf_auto_trials(wf_opts, train=True)
+    rungs = wf_rungs(wf_opts)
     rung = 0
+
+    def attempt(o):
+        if o is not rungs[rung]:  # a re-run: the step dropped and was discarded
+            count("fit.reruns")
+        loss, grads, info = loss_and_grad_sharded(
+            snapshot(), cfg, target_flat, mesh=mesh, backend=backend,
+            interleave=interleave, wf_opts=o, on_drop="ignore",
+            return_info=True)
+        return (loss, grads), info["dropped"]
+
     losses = []
     for step in range(steps):
         # The step's span holds the callback's snapshot, not the callback.
         with span("fit.step"):
-            while True:
-                loss, grads, info = loss_and_grad_sharded(
-                    snapshot(), cfg, target_flat, mesh=mesh, backend=backend,
-                    interleave=interleave, wf_opts=trials[rung],
-                    on_drop="ignore", return_info=True)
-                if info["dropped"] == 0:
-                    break
-                if rung + 1 == len(trials):
-                    _report_drops(info["dropped"], on_drop)
-                    break
-                _warn_escalate(info["dropped"], trials[rung], trials[rung + 1])
-                count("fit.reruns")
-                rung += 1  # discard the biased step and re-run it
+            (loss, grads), _, rung = climb_ladder(rungs, attempt, rung, on_drop)
             with span("fit.update"):
                 for p, g, m in zip(params, scene_leaves(grads), mask):
                     p.grad = g if m else torch.zeros_like(g)

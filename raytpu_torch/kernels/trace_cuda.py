@@ -224,6 +224,19 @@ def dense_takes(scene, cfg: RenderConfig) -> bool:
             and scene.lights.count <= MAX_LIGHTS)
 
 
+def _bwd_shared_bytes(n_spheres: int, n_lights: int) -> int:
+    """Shared memory of one backward block: the scene tables and the
+    block's gradient table, both 12N + 6L + 5 floats."""
+    return 2 * 4 * (SCENE_ROWS * n_spheres + LIGHT_ROWS * n_lights + BG_ROWS)
+
+
+def bwd_takes(n_spheres: int, n_lights: int) -> bool:
+    """Whether K2's block can stage N spheres' and L lights' tables and
+    their gradient table in shared memory; dense_takes holds the rest of
+    what K2 takes."""
+    return _bwd_shared_bytes(n_spheres, n_lights) <= SMEM_BYTES
+
+
 # Every scene tensor the kernels read: (group, field, its shape after the
 # group's count, or None for the background's fixed shape).
 _SCENE_FIELDS = (("spheres", "pos", (3,)), ("spheres", "radius", ()),
@@ -322,12 +335,6 @@ def render_image_cuda(scene, cfg: RenderConfig):
     return render_pixels_cuda(scene, cfg).reshape(cfg.height, cfg.width, 3)
 
 
-def _bwd_shared_bytes(n_spheres: int, n_lights: int) -> int:
-    """Shared memory of one backward block: the scene tables and the
-    block's gradient table, both 12N + 6L + 5 floats."""
-    return 2 * 4 * (SCENE_ROWS * n_spheres + LIGHT_ROWS * n_lights + BG_ROWS)
-
-
 def grads_from_table(tbl, n_spheres: int, n_lights: int) -> Scene:
     """A flat [scene (12, N) | lights (6, L) | background (5)] gradient
     table -> a Scene of gradients (the inverse of scene_tables)."""
@@ -391,7 +398,7 @@ def _grad_launch(entry: str, scene, cfg: RenderConfig, g, offset: int,
     _check_scene(scene, device)
     _check_cotangent(g, count, device)
     n, nl = scene.spheres.count, scene.lights.count
-    if _bwd_shared_bytes(n, nl) > SMEM_BYTES:
+    if not bwd_takes(n, nl):
         raise ValueError(
             f"the backward kernel stages the scene and its gradient in shared "
             f"memory: 8 * (12N + 6L + 5) = {_bwd_shared_bytes(n, nl)} bytes for "

@@ -16,6 +16,11 @@ Backends:
                   the scene and the config), else "cuda"; "torch" on the
                   CPU, as raytpu resolves to jnp off-TPU.
 
+The card's path rules live here, for rendering (card_backend) and for
+training (card_train_backend, which raytpu_torch.grad resolves through),
+beside the wavefront's auto chunk, its capacity ladder and the climb up it
+(climb_ladder) that render_sharded and grad.fit_scene both run.
+
 render_sharded renders the frame over the ranks of a process group
 (raytpu_torch.parallel): the scene replicated, each rank its pixel set,
 the frame gathered on every rank.
@@ -29,7 +34,8 @@ import torch
 
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.device import resolve_device
-from raytpu_torch.kernels.trace_cuda import (dense_takes, render_pixels_cuda,
+from raytpu_torch.kernels.trace_cuda import (bwd_takes, dense_takes,
+                                             render_pixels_cuda,
                                              render_pixels_torch)
 from raytpu_torch.kernels.wavefront import render_pixels_wavefront
 from raytpu_torch.parallel.mesh import (Mesh, all_gather_rows, all_reduce_sum,
@@ -82,6 +88,19 @@ def card_backend(scene, cfg: RenderConfig) -> str:
     return "cuda"
 
 
+def card_train_backend(scene, cfg: RenderConfig) -> str:
+    """What "auto" trains `scene` at `cfg` through on a CUDA device,
+    wherever the scene lies: the wavefront where the kernel pair does not
+    take the scene (a depth above MAX_DEPTH, more than MAX_SPHERES spheres
+    or MAX_LIGHTS lights, or tables beyond the backward's shared memory)
+    or where the measured training crossover says so, else "cuda"."""
+    n, nl = scene.spheres.count, scene.lights.count
+    if (not dense_takes(scene, cfg) or not bwd_takes(n, nl)
+            or _wf_wins_train(n, cfg)):
+        return "wavefront"
+    return "cuda"
+
+
 def resolve_backend(backend: str = "auto", scene=None,
                     cfg: RenderConfig | None = None, device=None) -> str:
     """Resolve "auto" to a concrete backend for a scene on its device (or,
@@ -112,8 +131,6 @@ def resolve_backend(backend: str = "auto", scene=None,
 # were faster (256K 272 ms, 512K 237, 1M 213, 2M 199, 4M 192 at factor
 # 1.0), and the factor moved the time by ~1% while 0.875 dropped rays at
 # 256K-1M; 1.0 dropped none.
-WF_AUTO_CHUNK = 1 << 22
-WF_AUTO_LADDER = (1.0, 1.25, 2.0, 4.0)
 # The training step's (the differentiable wavefront, K3 + K5 forward, K4 +
 # K6 backward, each chunk checkpointed so that its backward re-runs its K3
 # + K5 forward), from chip_smoke.py phase 15's sweep at config 5, factor
@@ -121,29 +138,26 @@ WF_AUTO_LADDER = (1.0, 1.25, 2.0, 4.0)
 # 287.0, none dropping; the peak, one chunk's residuals, 2.38, 2.96 and
 # 4.10 GiB with the ~1.7 GiB the script held before the step (phase 21
 # reads 2.44 GiB for the 4M step alone).  The first rung never dropped
-# there, so the ladder is the forward's.
-WF_AUTO_CHUNK_TRAIN = 1 << 22
-WF_AUTO_LADDER_TRAIN = WF_AUTO_LADDER
+# there, so training takes the forward's chunk and ladder.
+WF_AUTO_CHUNK = 1 << 22
+WF_AUTO_LADDER = (1.0, 1.25, 2.0, 4.0)
+# A single wavefront training call's capacity when the caller names none:
+# raytpu's loss_and_grad_wavefront default, above every measured frontier.
+# fit_scene climbs the ladder instead.
+WF_TRAIN_CAPACITY = 2.0
 
 
-def _wf_auto_trials(wf_opts: dict | None, train: bool = False):
-    """The wavefront option dicts to try in order: the ladder unless
-    wf_opts names a capacity_factor, then exactly that.  `train` takes the
-    training step's chunk and ladder."""
+def wf_rungs(wf_opts: dict | None) -> list:
+    """The wavefront option dicts to try in order: wf_opts alone where it
+    names a capacity_factor (a render then takes render_pixels_wavefront's
+    own chunk unless it names chunk_rays, a training step WF_AUTO_CHUNK),
+    else the ladder's factors over wf_opts, chunk_rays WF_AUTO_CHUNK
+    unless it names one."""
     o = dict(wf_opts or {})
     if "capacity_factor" in o:
         return [o]
-    o.setdefault("chunk_rays", WF_AUTO_CHUNK_TRAIN if train else WF_AUTO_CHUNK)
-    ladder = WF_AUTO_LADDER_TRAIN if train else WF_AUTO_LADDER
-    return [dict(o, capacity_factor=c) for c in ladder]
-
-
-def _warn_escalate(n: int, tried: dict, nxt: dict):
-    warnings.warn(
-        f"wavefront auto-capacity: {n} live rays dropped at "
-        f"capacity_factor={tried['capacity_factor']}; retrying at "
-        f"{nxt['capacity_factor']} (the zero-drop capacity depends on the "
-        f"scene)", RuntimeWarning, stacklevel=3)
+    o.setdefault("chunk_rays", WF_AUTO_CHUNK)
+    return [dict(o, capacity_factor=c) for c in WF_AUTO_LADDER]
 
 
 class DroppedRaysError(RuntimeError):
@@ -152,7 +166,7 @@ class DroppedRaysError(RuntimeError):
     capacity_factor (or chunk_rays) until the drop count is zero."""
 
 
-def _report_drops(dropped, on_drop: str) -> int:
+def report_drops(dropped, on_drop: str) -> int:
     """The drop count as an int, reported per `on_drop`: "warn"
     (default), "raise" or "ignore"."""
     n = int(dropped)
@@ -166,6 +180,25 @@ def _report_drops(dropped, on_drop: str) -> int:
             f"overflow): the image is missing their light; increase "
             f"capacity_factor or chunk_rays", RuntimeWarning, stacklevel=3)
     return n
+
+
+def climb_ladder(rungs: list, attempt, start: int = 0, on_drop: str = "warn"):
+    """Climb the capacity ladder `rungs` from rung `start`: attempt(rung)
+    returns (a result, its drop count as an int); on a drop below the top
+    rung it warns and attempts the next rung, and the drops left at the top
+    (or at a ladder of one) are reported per `on_drop`.  Returns (the last
+    result, the drops left, the index of the rung it ended on)."""
+    i = start
+    while True:
+        result, n = attempt(rungs[i])
+        if n == 0 or i + 1 == len(rungs):
+            return result, report_drops(n, on_drop), i
+        warnings.warn(
+            f"wavefront auto-capacity: {n} live rays dropped at "
+            f"capacity_factor={rungs[i]['capacity_factor']}; retrying at "
+            f"{rungs[i + 1]['capacity_factor']} (the zero-drop capacity "
+            f"depends on the scene)", RuntimeWarning, stacklevel=3)
+        i += 1
 
 
 def render_single(scene, cfg: RenderConfig, backend: str = "auto",
@@ -209,18 +242,17 @@ def render_sharded(scene, cfg: RenderConfig, mesh=None, backend: str = "auto",
     if backend == "cuda":
         rows = render_pixels_cuda(scene, cfg, offset, count, stride)
     elif backend == "wavefront":
-        trials = _wf_auto_trials(wf_opts)
-        for i, o in enumerate(trials):
+        def attempt(o):
             rows, mine = render_pixels_wavefront(
                 scene, cfg, return_info=True, offset=offset, count=count,
                 shard_stride=stride, **o)
-            n = int(all_reduce_sum(mesh, mine["dropped"]))  # one read a rung
-            if n == 0 or i + 1 == len(trials):
-                break
-            _warn_escalate(n, o, trials[i + 1])
+            return rows, int(all_reduce_sum(mesh, mine["dropped"]))  # one read a rung
+
+        rungs = wf_rungs(wf_opts)
+        rows, n, i = climb_ladder(rungs, attempt, on_drop=on_drop)
         # The resolved options ride out, so that a caller rendering more
         # frames of the scene can pass them back and skip the ladder.
-        info = dict(dropped=_report_drops(n, on_drop), wf_opts=o)
+        info = dict(dropped=n, wf_opts=rungs[i])
     else:
         rows = render_pixels_torch(scene, cfg, offset, count, stride)
     out = all_gather_rows(mesh, rows)

@@ -35,12 +35,13 @@ import sys
 
 import torch
 
+from raytpu_torch.bench import card_fields, counted
 from raytpu_torch.config import RenderConfig
+from raytpu_torch.device import local_device
 from raytpu_torch.kernels.bvh import build_bvh
 from raytpu_torch.kernels.trace_cuda import scene_tables
 from raytpu_torch.kernels.wavefront import camera_state, compact, wf_level
 from raytpu_torch.scene import random_scene
-from raytpu_torch.tools.common import card_fields, counted, tool_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,6 +87,19 @@ def shard_live_counts(scene, cfg: RenderConfig, shard_px: int, shards: int,
                                f"children and dropped {int(dropped)}")
         state, pid = state[:, :alive].contiguous(), pid[:alive]
     return counts
+
+
+def tool_device(cpu: bool):
+    """The CPU under --cpu, else this process's card; None, with the reason
+    on stderr, when there is no card: the CPU is never measured in the
+    card's place."""
+    if cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        print("error: no CUDA device found; pass --cpu to run on the CPU",
+              file=sys.stderr)
+        return None
+    return local_device()
 
 
 def main(argv=None) -> int:

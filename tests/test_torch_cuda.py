@@ -1234,25 +1234,3 @@ def test_bench_and_its_timing_on_the_card(dev):
     _, stats = render_timed(default_scene(device=dev), cfg, make_mesh(dev), 1, 2)
     assert stats["backend"] == "cuda" and stats["ranks"] == 1
     assert stats["device"] == torch.cuda.get_device_name(dev)
-
-
-def test_bench_all_skip_large_launches_each_keys_kernels(dev, capsys):
-    """raytpu_torch.tools.bench_all --skip-large on the card: configs 1-3
-    and the golden frame, no stage failed, each forward one K1 launch a
-    call, each step (the kernel pair) one K1 and one K2 a call, and no
-    other kernel."""
-    from raytpu_torch.tools import bench_all
-
-    assert bench_all.main(["--skip-large"]) == 0
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    assert [r["config"] for r in rows] == ["config1", "config2", "config3", "golden"]
-    calls = 1 + bench_all.REPS
-    none = dict.fromkeys(("trace_fwd", "trace_bwd", "wf_level", "wf_compact",
-                          "wf_level_bwd", "wf_uncompact"), 0)
-    for r in rows:
-        assert not [k for k in r if k.endswith("_error")], r
-        assert r["launches"] == {
-            "fwd": dict(none, trace_fwd=calls),
-            "fwd_bwd": dict(none, trace_fwd=calls, trace_bwd=calls)}, r
-        assert r["fwd_ms"] > 0 and r["fwd_bwd_ms"] > 0
-        assert r["device"] == torch.cuda.get_device_name(dev) and r["power_limit"]

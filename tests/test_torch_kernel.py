@@ -138,8 +138,8 @@ def test_backend_resolution():
                            deep) == "cuda"
     for n, depth in ((16, 6), (64, 2), (64, 4), (128, 2)):
         cfg = tconfig.RenderConfig(width=8, height=8, max_depth=depth)
-        want = "wavefront" if trender._wf_wins(n, depth) else "cuda"
         scene = tscene.random_scene(n, device="cpu")
+        want = trender.card_backend(scene, cfg)
         assert resolve_backend("auto", on_card(scene), cfg) == want
     assert resolve_backend("auto", big, deep) == "torch"
     assert resolve_backend("auto", big, deep, device="cuda") == "torch"

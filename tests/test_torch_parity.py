@@ -286,13 +286,21 @@ _REFERENCE_PPMS = ("reads the reference renderer's own golden PPMs "
 # tools/<name>.py -> (PORTED, the port's module), (OTHER_FORM, a port path
 # or file that carries its work, how), or (NOT_PORTED, None, why).
 TOOL_PORTS = {
-    "bench_all": (PORTED, "raytpu_torch.tools.bench_all"),
     "multiprocess_demo": (PORTED, "raytpu_torch.tools.multiprocess_demo"),
     "shard_balance": (PORTED, "raytpu_torch.tools.shard_balance"),
-    "step_bench": (PORTED, "raytpu_torch.tools.step_bench"),
-    "wf_breakdown": (PORTED, "raytpu_torch.tools.wf_breakdown"),
-    "bwd_bench": (OTHER_FORM, "raytpu_torch.tools.step_bench",
-                  "the forward and the steps; K2 alone is chip_smoke.py phase 8's, "
+    # The benchmark's cells time the frames and fit steps of its configs
+    # end to end, each with its trace's breakdown by kernel.
+    "bench_all": (OTHER_FORM, "benchmark/run.py",
+                  "the benchmark's frame and fit cells on the upstream scene, "
+                  "config 5 and the SPD sphereflake, each path's kernels traced"),
+    "step_bench": (OTHER_FORM, "benchmark/run.py",
+                   "the fit cells' steps, with the host's and each kernel's "
+                   "share of a step from the trace"),
+    "wf_breakdown": (OTHER_FORM, "benchmark/trace.py",
+                     "the wavefront cells' k3_ms, k4_ms and glue_ms and the "
+                     "trace's breakdown of a step"),
+    "bwd_bench": (OTHER_FORM, "benchmark/run.py",
+                  "the fit cells' steps; K2 alone is chip_smoke.py phase 8's, "
                   "by CUDA events, which need no slope over a dispatch floor"),
     "chunk_profile": (OTHER_FORM, "raytpu_torch.utils.profiling.profile_trace",
                       "torch.profiler; chip_smoke.py phase 12 profiles a config-5 "

@@ -436,13 +436,15 @@ def test_training_backend_resolution():
     """"auto" trains through the wavefront on a CUDA scene from 640x480 3x3
     camera rays and N x depth 256 up (the crossover measured on the card);
     on the CPU it is the eager tracer, and an explicit backend is kept."""
-    from raytpu_torch.render import _wf_wins_train
+    from raytpu_torch.render import card_train_backend
 
     ts = tscene.default_scene(device="cpu")
     big = tconfig.RenderConfig(width=640, height=480, max_depth=4)
     small = tconfig.RenderConfig(width=64, height=48, max_depth=4)
-    assert _wf_wins_train(64, big) and not _wf_wins_train(64, small)
-    assert not _wf_wins_train(3, big)  # config 3 trains through the pair
+    n64 = tscene.random_scene(64, device="cpu")
+    assert card_train_backend(n64, big) == "wavefront"
+    assert card_train_backend(n64, small) == "cuda"
+    assert card_train_backend(ts, big) == "cuda"  # config 3 trains through the pair
     assert tgrad.resolve_train_backend("auto", ts, big) == "torch"
     assert tgrad.resolve_train_backend("wavefront", ts, small) == "wavefront"
     with pytest.raises(ValueError):
