@@ -91,8 +91,9 @@ result lines):
      with backend="wavefront", 3 steps of matte and light colours from the
      fit example's perturbation, counting K3, K4, K5 and K6 launches (chunks
      x 7, chunks x 7, chunks x 6 x 2, chunks x 6 per step tried, K3's and
-     K5's twice over where a step has more than one chunk: each chunk is
-     checkpointed and its backward re-runs its forward), no dropped
+     K5's twice over for each chunk but the last where a step has more
+     than one: each such chunk is checkpointed and its backward re-runs
+     its forward), no dropped
      ray, the loss falling or holding, and the first step's loss and
      gradient against the kernel pair's (tests/test_wavefront.py:196-219's
      contract); then the fit example with --backend wavefront at config 3;
@@ -176,10 +177,10 @@ result lines):
      stream caches blocks of its own) and its summed kernel time over its
      wall time under torch.profiler (above 1 where kernels overlap); (b)
      the 1920x1080 training step through loss_and_grad_sharded (each of its
-     chunks checkpointed) at streams 1 and 2, no drop, loss and leaves
-     against K1 + K2 under phase 14's bound, timed in turns (median of 3
-     after 1 warm-up) with its peak memory, beside the figures of the
-     step that kept every chunk's residuals;
+     chunks but the last checkpointed) at streams 1 and 2, no drop, loss
+     and leaves against K1 + K2 under phase 14's bound, timed in turns
+     (median of 3 after 1 warm-up) with its peak memory, beside the
+     figures of the step that kept every chunk's residuals;
      (c) one 7680x4320 training step after 1 warm-up: no drop, a finite
      loss, a peak of at most 16 GiB, loss and leaves against one K1 + K2
      step under the same bound.  K3, K4, K5 and K6 must launch; their
@@ -1224,9 +1225,9 @@ def training_phases(dev):
     chunks = [wavefront_sizes(c5, kw["chunk_rays"], kw["capacity_factor"])[3]
               for _, _, kw in calls]
     levels = c5.max_depth + 1
-    # A step of more than one chunk checkpoints each: its backward re-runs
-    # the chunk's K3 and K5.
-    fwd = sum(n * (2 if n > 1 else 1) for n in chunks)
+    # A step of more than one chunk checkpoints each but the last: its
+    # backward re-runs those chunks' K3 and K5.
+    fwd = sum(2 * n - 1 for n in chunks)
     check((l3, l4, l5, l6) == (fwd * levels, sum(chunks) * levels,
                                fwd * (levels - 1) * 2,
                                sum(chunks) * (levels - 1)),
@@ -2257,9 +2258,10 @@ def chunks_phase(dev, smi) -> dict:
     """Phase 21: the wavefront's chunk loop at config 5's scene
     (random_scene(256, seed=3), depth 6, 3x3): (a) the 1920x1080 frame at
     streams 1, 2 and 4 against streams=1's, timed in turns; (b) the
-    1920x1080 training step, each chunk checkpointed, at streams 1 and 2
-    against K1 + K2, timed in turns with its peak memory; (c) one
-    7680x4320 training step against K1 + K2, with its time and peak.
+    1920x1080 training step, each chunk but the last checkpointed, at
+    streams 1 and 2 against K1 + K2, timed in turns with its peak memory;
+    (c) one 7680x4320 training step against K1 + K2, with its time and
+    peak.
     Returns each wavefront kernel's launches over the phase and its
     numbers."""
     import gc
@@ -2429,7 +2431,8 @@ def chunks_phase(dev, smi) -> dict:
                          "reserved_gib": rsv,
                          "loss_rel": rel, "worst_leaf": worst}
     print(f"phase 21 ({smi}): config5 1920x1080 training step, "
-          f"{out['step_1080p']['chunks']} checkpointed chunks at {train}: streams 1 "
+          f"{out['step_1080p']['chunks']} chunks, all but the last checkpointed, "
+          f"at {train}: streams 1 "
           f"{train_ms[1]:.3f} ms, 2 {train_ms[2]:.3f} ms ({train_ms[2] / train_ms[1]:.3f}x) "
           f"(median of 3 in turns after 1 warm-up); peak {peaks[1]:.2f} and "
           f"{peaks[2]:.2f} GiB allocated, {rsv[1]:.2f} and {rsv[2]:.2f} GiB "
@@ -2456,7 +2459,8 @@ def chunks_phase(dev, smi) -> dict:
                       "peak_gib": peak, "held_before_gib": held_gib,
                       "loss_rel": rel8, "worst_leaf": worst8}
     print(f"phase 21 ({smi}): 7680x4320 d6 a3 training step, "
-          f"{out['step_8k']['chunks']} checkpointed chunks: {ms:.3f} ms (one step "
+          f"{out['step_8k']['chunks']} chunks, all but the last checkpointed: "
+          f"{ms:.3f} ms (one step "
           f"after 1 warm-up), peak {peak:.2f} GiB (<= 16; {held_gib:.2f} GiB held "
           f"before it); 0 dropped; against K1 + K2 loss rel {rel8:.2e} (<= 1e-5), "
           f"worst leaf {worst8:.2e} x scale (<= 2e-3)")

@@ -62,13 +62,15 @@ Pallas interpreter).
 The chunk loop is raytpu's scan over `trace_stream`: one function of the
 scene tables and the chunk index returns the chunk's slot window and its
 drop count, and the strided write into the frame stays outside it.  Under
-autograd a frame of more than one chunk runs each chunk through
-torch.utils.checkpoint (raytpu's jax.checkpoint of its scan body), so the
-backward re-runs the chunk's forward (K3 and K5 twice a chunk in a
-training step) and live memory holds one chunk's residuals, whatever the
-frame size.  `streams` > 1 runs chunk c on CUDA side stream c % streams,
-so that one chunk's deep, sparse levels can share the card with another's
-(on a TPU, which runs one kernel at a time, the knob measured neutral).
+autograd a frame of more than one chunk runs each chunk but the last
+through torch.utils.checkpoint (raytpu's jax.checkpoint of its scan body),
+so the backward re-runs those chunks' forwards (K3 and K5 twice a chunk
+but the last in a training step) and live memory holds one chunk's
+residuals, whatever the frame size: the last chunk's, kept from the
+forward, are the first the backward uses and frees.  `streams` > 1 runs
+chunk c on CUDA side stream c % streams, so that one chunk's deep, sparse
+levels can share the card with another's (on a TPU, which runs one kernel
+at a time, the knob measured neutral).
 
 A scene on the CPU runs each kernel's plain version (`wf_level_torch`,
 `compact_torch`, `wf_level_bwd_torch`, `uncompact_torch`); a scene on a
@@ -584,9 +586,9 @@ class WfLevelFn(torch.autograd.Function):
     inputs are the three scene tables and the state, so that autograd
     routes the table gradients through scene_tables to the scene leaves.
     It saves its inputs and K3's selections (12 bytes a ray at L <= 32),
-    all through save_for_backward, so that a checkpointed chunk frees and
-    recomputes them; the tables and the BVH are the frame's, shared by
-    every level."""
+    all through save_for_backward, so that a checkpointed chunk (each
+    chunk but the last) frees and recomputes them; the tables and the BVH
+    are the frame's, shared by every level."""
 
     @staticmethod
     def forward(ctx, scene, spawn, bvh, spheres_tbl, lights_tbl, bg_tbl, state):
@@ -734,10 +736,12 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
     When grad is enabled and a scene leaf requires grad, the frame is
     differentiable: levels run as WfLevelFn (K3 forward, K4 backward) and
     compactions as CompactFn (K5, K6 backward).  A frame of more than one
-    chunk then checkpoints each chunk: the backward re-runs its forward, so
-    autograd holds no finished chunk's per-level residuals.  A dropped ray
-    takes no gradient: the caller enforces the counter, which counts the
-    forward's drops once."""
+    chunk then checkpoints each chunk but the last: the backward re-runs
+    their forwards, so autograd holds the per-level residuals of the last
+    chunk only, which its backward, the first to run, uses.  It counts
+    the frame's chunks (wf.ad_chunks) and those checkpointed
+    (wf.recomputed).  A dropped ray takes no gradient: the caller enforces
+    the counter, which counts the forward's drops once."""
     device = _cuda_device(scene, "render_pixels_wavefront")
     ad = torch.is_grad_enabled() and any(t.requires_grad
                                          for t in scene_leaves(scene))
@@ -823,8 +827,16 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
                 t.record_stream(s)
     for c in range(n_chunks):
         s = c % len(side)
+        # Every chunk but the last goes through a checkpoint.  The backward
+        # reaches the last chunk first, so a recompute of it would rebuild
+        # at once the residuals it frees now: keeping them costs no peak.
+        recompute = ad and c < n_chunks - 1
+        if ad:
+            profiling.count("wf.ad_chunks")
+            if recompute:
+                profiling.count("wf.recomputed")
         with _on(side[s]):
-            if ad and n_chunks > 1:
+            if recompute:
                 accw, lost = checkpoint(trace_chunk, c, *tables,
                                         use_reentrant=False,
                                         preserve_rng_state=False)

@@ -132,10 +132,11 @@ def resolve_backend(backend: str = "auto", scene=None,
 # 1.0), and the factor moved the time by ~1% while 0.875 dropped rays at
 # 256K-1M; 1.0 dropped none.
 # The training step's (the differentiable wavefront, K3 + K5 forward, K4 +
-# K6 backward, each chunk checkpointed so that its backward re-runs its K3
-# + K5 forward), from chip_smoke.py phase 15's sweep at config 5, factor
-# 1.0, on the same card: 1M-ray chunks 329.5 ms a step, 2M 298.7, 4M
-# 287.0, none dropping; the peak, one chunk's residuals, 2.38, 2.96 and
+# K6 backward, each chunk but the last checkpointed so that its backward
+# re-runs its K3 + K5 forward; every chunk was when swept), from
+# chip_smoke.py phase 15's sweep at config 5, factor 1.0, on the same
+# card: 1M-ray chunks 329.5 ms a step, 2M 298.7, 4M 287.0, none
+# dropping; the peak, one chunk's residuals, 2.38, 2.96 and
 # 4.10 GiB with the ~1.7 GiB the script held before the step (phase 21
 # reads 2.44 GiB for the 4M step alone).  The first rung never dropped
 # there, so training takes the forward's chunk and ladder.

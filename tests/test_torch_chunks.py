@@ -9,13 +9,19 @@ here has more than 8192 camera rays.  What is held, and how closely:
     a frame that drops rays;
   * `streams=2` gives raytpu's `streams=2` frame (its Pallas interpreter)
     under tests/test_wavefront.py:25-36's contract, both dropping nothing;
-  * the gradient of a 3-chunk frame, whose chunks are checkpointed (K3's
-    and K5's plain versions run twice a chunk), against raytpu's jax.vjp
-    of its jnp tracer (tests/test_torch_wavefront_grad.py's masked
-    cotangent, every leaf within 2e-3 x scale) and against the port's
-    eager autograd (loss rtol 1e-5, the same leaf bound);
-  * autograd holds no chunk's per-level residuals: outside the checkpoints
-    it saves the scene tables and frame-sized buffers only;
+  * the gradient of a 3-chunk frame, whose chunks but the last are
+    checkpointed (K3's and K5's plain versions run twice a chunk but the
+    last), against raytpu's jax.vjp of its jnp tracer
+    (tests/test_torch_wavefront_grad.py's masked cotangent, every leaf
+    within 2e-3 x scale) and against the port's eager autograd (loss rtol
+    1e-5, the same leaf bound);
+  * autograd holds one chunk's per-level residuals, the last chunk's:
+    outside the checkpoints it saves those, the scene tables once a
+    checkpointed chunk and frame-sized buffers only;
+  * the backward runs the last chunk's level backwards before it re-runs
+    any other chunk's forward, so the peak holds one chunk's residuals;
+  * the recorder counts a differentiable frame's chunks (wf.ad_chunks) and
+    those checkpointed (wf.recomputed), once each, in the forward;
   * a drop is counted once: the step's count is the forward's, and
     fit_scene's ladder climbs on it.
 """
@@ -25,6 +31,7 @@ import pytest
 import torch
 from test_torch_wavefront import assert_wavefront_contract, overflow_scenes
 from test_torch_wavefront_grad import assert_leaf_within, masked_gradient_case
+from torch.profiler import ProfilerActivity, profile
 
 import raytpu.config as jconfig
 import raytpu.scene as jscene
@@ -36,6 +43,7 @@ from raytpu_torch.kernels import wavefront
 from raytpu_torch.kernels.trace_cuda import scene_tables
 from raytpu_torch.kernels.wavefront import render_pixels_wavefront, wavefront_sizes
 from raytpu_torch.scene import LEAF_NAMES, scene_from_leaves, scene_leaves
+from raytpu_torch.utils.profiling import counters, reset
 
 torch.set_num_threads(2)
 
@@ -124,9 +132,9 @@ def test_gradient_over_three_checkpointed_chunks(monkeypatch):
                                   counting(monkeypatch, "compact"))
     # masked_gradient_case asks for 1024-ray chunks: 8192 after alignment.
     got, want = masked_gradient_case(js, ts, jcfg, tcfg, max_bad=GRAD_BAD)
-    # The backward re-ran every chunk's forward.
-    assert len(level_calls) == 2 * chunks * levels
-    assert len(compact_calls) == 2 * chunks * (levels - 1)
+    # The backward re-ran every chunk's forward but the last's.
+    assert len(level_calls) == (2 * chunks - 1) * levels
+    assert len(compact_calls) == (2 * chunks - 1) * (levels - 1)
     for name, a, w in zip(LEAF_NAMES, got, want):
         assert_leaf_within(name, np.zeros(np.shape(w)) if a is None else a, w)
 
@@ -159,11 +167,15 @@ def saved_outside_checkpoints(scene, cfg):
 
 
 def test_no_chunk_residuals_are_kept():
+    """No chunk's residuals but the last's: outside the checkpoints autograd
+    saves the frame-sized buffers, the tables once a checkpointed chunk
+    (its inputs) and the last chunk's level residuals, the same bytes and
+    shapes whatever the number of chunks before it."""
     scene = tscene.random_scene(24, num_lights=2, seed=5, device="cpu")
     tables = [(tuple(t.shape), t.numel() * t.element_size())
               for t in scene_tables(scene)]
     tables_bytes = sum(b for _, b in tables)
-    rest = {}
+    rest, shapes = {}, {}
     for height in (48, 96, 144):  # 1, 2 and 3 chunks at the same width
         cfg = tconfig.RenderConfig(width=160, height=height, max_depth=2,
                                    alias_factor=1)
@@ -173,19 +185,87 @@ def test_no_chunk_residuals_are_kept():
         frame = sum(b for shape, b in saved if shape[0] == cfg.num_pixels)
         total = sum(b for _, b in saved)
         rest[chunks] = (total, frame)
-        if chunks > 1:
-            # The checkpoints' inputs (the tables, once a chunk) and the
-            # frame-sized buffers: nothing a chunk's levels made.
-            assert total - frame == chunks * tables_bytes
-            assert sorted(s for s, _ in saved if s[0] != cfg.num_pixels) == sorted(
-                chunks * [s for s, _ in tables])
-    # Without a checkpoint (one chunk) the level residuals are there for the
-    # hooks to see: at least the camera state, 10 floats a ray.
-    assert rest[1][0] - rest[1][1] >= 40 * CHUNK
+        shapes[chunks] = sorted(s for s, _ in saved if s[0] != cfg.num_pixels)
+    # One chunk is not checkpointed: its level residuals are there for the
+    # hooks to see, at least the camera state, 10 floats a ray.
+    kept = rest[1][0] - rest[1][1]
+    assert kept >= 40 * CHUNK
+    for chunks in (2, 3):
+        # The checkpoints' inputs (the tables, once a checkpointed chunk)
+        # and the last chunk's residuals, as a frame of one chunk keeps.
+        assert rest[chunks][0] - rest[chunks][1] - (chunks - 1) * tables_bytes == kept
+        assert shapes[chunks] == sorted(shapes[1] + (chunks - 1) * [s for s, _ in tables])
     # A third chunk adds its pixels' frame-sized buffers and the tables.
     assert (rest[3][0] - rest[2][0]
             == rest[3][1] - rest[2][1] + tables_bytes)
-    assert rest[3][0] < rest[1][0]
+
+
+def test_the_last_chunk_runs_its_backward_before_any_recompute(monkeypatch):
+    """The backward of a 3-chunk frame: the last chunk's level backwards,
+    from its kept residuals, run before any other chunk's forward is re-run,
+    and each checkpointed chunk then re-runs its forward and runs its
+    backward in turn, the latest first.  So no two chunks' residuals are
+    live at once."""
+    cfg = tconfig.RenderConfig(width=160, height=144, max_depth=2,
+                               alias_factor=1)
+    chunks = wavefront_sizes(cfg, CHUNK, 2)[3]
+    assert chunks == 3
+    levels = cfg.max_depth + 1
+    log = []
+
+    def log_calls(name, entry):
+        real = getattr(wavefront, name)
+
+        def spy(*args, **kwargs):
+            log.append(entry(args))
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(wavefront, name, spy)
+
+    log_calls("chunk_camera_state", lambda args: ("chunk", args[3]))
+    log_calls("wf_level", lambda args: "K3")
+    log_calls("wf_level_bwd", lambda args: "K4")
+    scene = tscene.random_scene(24, num_lights=2, seed=5, device="cpu")
+    leaves = [t.detach().requires_grad_(True) for t in scene_leaves(scene)]
+    img = render_pixels_wavefront(scene_from_leaves(leaves), cfg, chunk_rays=CHUNK)
+    forward = [e for c in range(chunks) for e in [("chunk", c)] + levels * ["K3"]]
+    assert log == forward
+    torch.autograd.grad(torch.mean((img - 1e-4) ** 2), leaves, allow_unused=True)
+    backward = levels * ["K4"] + [
+        e for c in reversed(range(chunks - 1))
+        for e in [("chunk", c)] + levels * ["K3"] + levels * ["K4"]]
+    assert log[len(forward):] == backward
+
+
+def test_the_recomputed_chunks_are_counted():
+    """While a profiler records, a differentiable frame adds its chunks to
+    wf.ad_chunks and its checkpointed chunks to wf.recomputed, once in the
+    forward (a recompute adds nothing); a frame without grad adds to
+    neither, nor does a frame outside a profiler."""
+    scene = tscene.random_scene(24, num_lights=2, seed=5, device="cpu")
+    leaves = [t.detach().requires_grad_(True) for t in scene_leaves(scene)]
+
+    def frame(height, grad=True):
+        cfg = tconfig.RenderConfig(width=160, height=height, max_depth=1,
+                                   alias_factor=1)
+        with torch.set_grad_enabled(grad):
+            img = render_pixels_wavefront(scene_from_leaves(leaves), cfg,
+                                          chunk_rays=CHUNK)
+        if grad:
+            torch.autograd.grad(img.sum(), leaves, allow_unused=True)
+        return {k: counters().get(k, 0) for k in ("wf.ad_chunks", "wf.recomputed")}
+
+    reset()
+    try:
+        assert frame(144) == {"wf.ad_chunks": 0, "wf.recomputed": 0}
+        with profile(activities=[ProfilerActivity.CPU]):
+            assert frame(144, grad=False) == {"wf.ad_chunks": 0, "wf.recomputed": 0}
+            assert frame(144) == {"wf.ad_chunks": 3, "wf.recomputed": 2}
+            reset()
+            assert frame(48) == {"wf.ad_chunks": 1, "wf.recomputed": 0}
+            assert frame(48, grad=False) == {"wf.ad_chunks": 1, "wf.recomputed": 0}
+    finally:
+        reset()
 
 
 def test_a_drop_is_counted_once():

@@ -203,17 +203,21 @@ def _counting_compact(seen):
 @pytest.mark.parametrize("ad", [False, True], ids=["forward", "grad"])
 @pytest.mark.parametrize("width", [64, 144], ids=["one_chunk", "two_chunks"])
 def test_wavefront_counts_chunks_levels_slots_and_live_rays(monkeypatch, ad, width):
-    """wf.chunk and wf.level count chunks x levels, doubled under autograd
-    with more than one chunk (the checkpoint re-runs each chunk's
-    forward); wf.live counts the camera rays inside the window and every
-    ray that the compaction kept, and wf.slots K3's slots."""
+    """wf.chunk and wf.level count chunk forwards x levels: under autograd
+    with more than one chunk each chunk but the last runs twice (the
+    checkpoint re-runs its forward), as wf.ad_chunks and wf.recomputed
+    count; wf.live counts the camera rays inside the window and every ray
+    that the compaction kept, and wf.slots K3's slots."""
     cfg = RenderConfig(width=width, height=64, max_depth=2, alias_factor=1)
     chunk, ws, cap, n_chunks = wavefront_sizes(cfg, 8192, 2)
     assert n_chunks == (1 if width == 64 else 2)
     seen = []
     scene = default_scene(device="cpu")
     levels = cfg.max_depth + 1
-    runs = 2 if ad and n_chunks > 1 else 1
+    recomputed = range(n_chunks - 1) if ad else range(0)
+    runs = n_chunks + len(recomputed)  # chunk forwards
+    camera = cfg.num_pixels + sum(-(-(cfg.num_pixels - c) // n_chunks)
+                                  for c in recomputed)
     if ad:
         monkeypatch.setattr(wavefront, "CompactFn", _CountingCompactFn)
         monkeypatch.setattr(_CountingCompactFn, "seen", seen)
@@ -227,14 +231,16 @@ def test_wavefront_counts_chunks_levels_slots_and_live_rays(monkeypatch, ad, wid
             render_pixels_wavefront(scene, cfg, chunk_rays=8192, capacity_factor=2)
     got, counted = spans(), counters()
     assert got["wf.frame"]["count"] == 1
-    assert got["wf.chunk"]["count"] == runs * n_chunks
-    assert got["wf.level"]["count"] == runs * n_chunks * levels
+    assert got["wf.chunk"]["count"] == runs
+    assert got["wf.level"]["count"] == runs * levels
+    assert counted.get("wf.ad_chunks", 0) == (n_chunks if ad else 0)
+    assert counted.get("wf.recomputed", 0) == len(recomputed)
     assert "wf.bvh" not in got  # built on a card only
-    assert len(seen) == runs * n_chunks * cfg.max_depth
-    assert counted["wf.live"] == runs * cfg.num_pixels + sum(seen)
+    assert len(seen) == runs * cfg.max_depth
+    assert counted["wf.live"] == camera + sum(seen)
     assert counted["wf.live"] <= counted["wf.slots"]
     # K3's slots: the chunk at level 0, then the compactions' capacities.
-    assert counted["wf.slots"] == runs * n_chunks * (chunk + min(2 * chunk, cap) + cap)
+    assert counted["wf.slots"] == runs * (chunk + min(2 * chunk, cap) + cap)
 
 
 class _CountingCompactFn(torch.autograd.Function):
