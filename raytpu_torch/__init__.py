@@ -16,6 +16,8 @@ Public surface:
     raytpu_torch.scene_io   JSON scene files (raytpu's schema)
     raytpu_torch.image      tone mapping + PPM I/O (golden-image contract)
     raytpu_torch.trace      eager bounce-tree tracer + camera model
+    raytpu_torch.camera     posed cameras (View, turntable) for fits from
+                            several views of a world-space scene
     raytpu_torch.kernels    the CUDA kernels (dense forward and backward, the
                             wavefront's level and compaction and their
                             backwards), their plain versions, the autograd
@@ -42,6 +44,7 @@ Public surface:
     raytpu_torch.tools      kernel and path A/B timing, the multiprocess demo
 """
 
+from raytpu_torch.camera import View, scene_in_view, turntable
 from raytpu_torch.config import BENCH_CONFIGS, RenderConfig
 from raytpu_torch.grad import (exposure_image_loss, finite_difference_check,
                                fit_scene, image_loss, loss_and_grad,
@@ -75,6 +78,7 @@ __all__ = [
     "scene_leaves", "scene_from_leaves",
     "load_scene", "save_scene",
     "render_image", "render_pixels", "trace_rays", "camera_rays",
+    "View", "turntable", "scene_in_view",
     "render_single", "render_sharded", "render_timed", "resolve_backend",
     "DroppedRaysError", "make_mesh", "initialize_distributed", "gather_image",
     "render_pixels_wavefront", "render_image_wavefront",

@@ -38,6 +38,14 @@ loss_and_grad_sharded and fit_scene(mesh=) train over the ranks of a
 process group (raytpu_torch.parallel): the scene replicated, each rank the
 gradient of its pixel set's share of the loss, and one all-reduce of the
 gradient, the loss and the drop count together.
+
+loss_and_grad_sharded(views=) and fit_scene(views=) fit a world-space
+scene to V calibrated views (camera.View) at once: the loss is the mean
+over every view's pixels, and a step runs each view's forward followed at
+once by its backward, the gradient accumulated, so that memory holds one
+view's residuals; the wavefront's tree is built once a step for every
+view, and the all-reduce, the drop count and the ladder's decision come
+once a step over all views.
 """
 
 from __future__ import annotations
@@ -45,10 +53,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from raytpu_torch.camera import scene_in_view
 from raytpu_torch.config import RenderConfig
-from raytpu_torch.kernels.trace_cuda import (pack_pixel_tiles,
+from raytpu_torch.kernels.bvh import build_bvh
+from raytpu_torch.kernels.trace_cuda import (grads_from_table,
+                                             pack_pixel_tiles,
                                              render_pixels_cuda_ad,
-                                             render_pixels_torch,
+                                             render_pixels_torch, scene_tables,
                                              unpack_pixel_tiles)
 from raytpu_torch.kernels.wavefront import render_pixels_wavefront
 from raytpu_torch.parallel.mesh import Mesh, all_reduce_sum, make_mesh, pixel_set
@@ -58,6 +69,71 @@ from raytpu_torch.render import (WF_AUTO_CHUNK, WF_TRAIN_CAPACITY,
 from raytpu_torch.scene import Scene, scene_from_leaves, scene_leaves
 from raytpu_torch.trace import render_pixels
 from raytpu_torch.utils.profiling import count, scoped, span
+
+
+def _views_value_and_grad(scene, cfg: RenderConfig, targets, views, backend: str,
+                          pixels, wf_opts: dict | None, info: dict):
+    """The V-view loss over the pixel set `pixels` = (offset, count,
+    stride), sum over views and pixels of err^2 / (3 P V), and its
+    gradient as a Scene, for targets (V, P, 3) and V camera.Views, on the
+    resolved `backend`.  Each view's forward is followed at once by its
+    backward and the gradient accumulated (the span views.view around the
+    two; one views.rendered a view), so that no graph outlives its view.
+    The wavefront renders every view from one set of tables, leaves of
+    their own that take the gradient, and one tree built from them (its
+    reach covering every eye), and sums the views' drop counts into
+    info["dropped"] on the device; the dense pair renders each view's
+    scene_in_view, the eager tracer its posed rays."""
+    offset, n_pix, stride = pixels
+    if tuple(targets.shape[:1]) != (len(views),):
+        raise ValueError(f"targets of shape {tuple(targets.shape)} for "
+                         f"{len(views)} views: expected (V, P, 3)")
+    scale = 3 * cfg.num_pixels * len(views)
+    if backend == "wavefront":
+        opts = _wf_train_opts(wf_opts)
+        tables = [t.detach().requires_grad_(True) for t in scene_tables(scene)]
+        # The tree, read by the kernels only (the plain versions read none).
+        bvh = build_bvh(tables[0], tables[1],
+                        max(float(abs(v.eye).max()) for v in views))
+        wrt, dropped = tables, []
+        info["wf_opts"] = opts
+    else:
+        wrt = [t.detach().requires_grad_(True) for t in scene_leaves(scene)]
+        ad_scene = scene_from_leaves(wrt)
+    value, grads = 0.0, [None] * len(wrt)
+    for view, target_v in zip(views, targets):
+        target = target_v[offset::stride][:n_pix]
+        with span("views.view"):
+            count("views.rendered")
+            with torch.enable_grad():
+                with span("step.forward"):
+                    if backend == "wavefront":
+                        img, i = render_pixels_wavefront(
+                            scene, cfg, return_info=True, offset=offset,
+                            count=n_pix, shard_stride=stride, view=view,
+                            bvh=bvh, tables=tables, **opts)
+                        dropped.append(i["dropped"])
+                    elif backend == "cuda":
+                        img = render_pixels_cuda_ad(
+                            scene_in_view(ad_scene, view), cfg, offset, n_pix,
+                            stride)
+                    else:
+                        img = render_pixels_torch(ad_scene, cfg, offset, n_pix,
+                                                  stride, view=view)
+                    err = img - target
+                    loss = torch.sum(err * err) / scale
+                with span("step.backward"):
+                    got = torch.autograd.grad(loss, wrt, allow_unused=True)
+            value = value + loss.detach()
+            grads = [d if g is None else g if d is None else g + d
+                     for g, d in zip(grads, got)]
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(wrt, grads)]
+    if backend == "wavefront":
+        info["dropped"] = torch.stack(dropped).sum()
+        return value, grads_from_table(
+            torch.cat([g.reshape(-1) for g in grads]), scene.spheres.count,
+            scene.lights.count)
+    return value, scene_from_leaves(grads)
 
 
 def resolve_train_backend(backend: str, scene, cfg: RenderConfig,
@@ -70,6 +146,13 @@ def resolve_train_backend(backend: str, scene, cfg: RenderConfig,
     if backend == "auto" and scene.device.type == "cuda":
         return card_train_backend(scene, cfg)
     return resolve_backend(backend, scene)
+
+
+def _wf_train_opts(wf_opts: dict | None) -> dict:
+    """A training call's wavefront options: WF_AUTO_CHUNK and
+    WF_TRAIN_CAPACITY where `wf_opts` names no other."""
+    return {"chunk_rays": WF_AUTO_CHUNK, "capacity_factor": WF_TRAIN_CAPACITY,
+            **(wf_opts or {})}
 
 
 def _render_ad(scene, cfg: RenderConfig, gid, backend: str,
@@ -90,8 +173,7 @@ def _render_ad(scene, cfg: RenderConfig, gid, backend: str,
         offset, count, stride = (0, None, 1) if pixels is None else pixels
         if backend == "cuda":
             return render_pixels_cuda_ad(scene, cfg, offset, count, stride)
-        opts = {"chunk_rays": WF_AUTO_CHUNK,
-                "capacity_factor": WF_TRAIN_CAPACITY, **(wf_opts or {})}
+        opts = _wf_train_opts(wf_opts)
         img, i = render_pixels_wavefront(scene, cfg, return_info=True,
                                          offset=offset, count=count,
                                          shard_stride=stride, **opts)
@@ -207,7 +289,7 @@ def loss_and_grad_wavefront(scene, cfg: RenderConfig, target_flat,
 def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
                           backend: str = "auto", interleave: bool | None = None,
                           wf_opts: dict | None = None, on_drop: str = "raise",
-                          return_info: bool = False):
+                          return_info: bool = False, views=None):
     """The MSE against a (P, 3) target and its scene gradient, with the
     pixels split over the ranks of `mesh` (default: make_mesh on the
     scene's device) and the scene replicated: (loss, gradient Scene), the
@@ -223,22 +305,32 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, target_flat, mesh=None,
     wavefront's drop count in one buffer (none in a world of one).  A
     dropped live ray biases the gradient, so the summed count is reported
     per `on_drop` ("raise" by default) on every rank alike.  `wf_opts`
-    (chunk_rays, capacity_factor, streams) tune the wavefront."""
+    (chunk_rays, capacity_factor, streams) tune the wavefront.
+
+    `views`, a list of V camera.Views of the world-space scene, with
+    target_flat of shape (V, P, 3): the loss is the mean over every view's
+    pixels, sum(err^2) / (3PV), each rank its pixel set of every view
+    (_views_value_and_grad), and the one all-reduce, the drop count and
+    its report come once over all views."""
     mesh = make_mesh(scene.device) if mesh is None else mesh
     p = cfg.num_pixels
     if p % mesh.size:
         raise ValueError(f"{p} pixels do not divide over {mesh.size} ranks")
     backend = resolve_train_backend(backend, scene, cfg)
     pixels = pixel_set(mesh, cfg, interleave)
-    offset, count, stride = pixels
-    target = target_flat[offset::stride][:count]
     info = {}
+    if views is None:
+        offset, n_pix, stride = pixels
+        target = target_flat[offset::stride][:n_pix]
 
-    def loss(s):
-        err = _render_ad(s, cfg, None, backend, wf_opts, info, pixels) - target
-        return torch.sum(err * err) / (3 * p)
+        def loss(s):
+            err = _render_ad(s, cfg, None, backend, wf_opts, info, pixels) - target
+            return torch.sum(err * err) / (3 * p)
 
-    value, grads = _value_and_grad(loss, scene)
+        value, grads = _value_and_grad(loss, scene)
+    else:
+        value, grads = _views_value_and_grad(scene, cfg, target_flat, views,
+                                             backend, pixels, wf_opts, info)
     with span("step.reduce"):
         # The gradient leaves, the loss and (the wavefront's) the drop count.
         parts = [*scene_leaves(grads), value] + (
@@ -262,9 +354,12 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
               learning_rate: float = 1e-2, mesh=None, optimizer=None,
               callback=None, trainable=None, backend: str = "auto",
               interleave: bool | None = None, wf_opts: dict | None = None,
-              on_drop: str = "raise"):
+              on_drop: str = "raise", views=None):
     """Gradient-fit task (BASELINE config 4): optimise the scene's leaves to
-    match a (P, 3) linear target.  Returns (scene, losses).
+    match a (P, 3) linear target, or with `views` (a list of V
+    camera.Views of the world-space scene) targets (V, P, 3), one from
+    each view, every step over all of them (loss_and_grad_sharded's
+    views).  Returns (scene, losses).
 
     `optimizer`: a function from the list of 11 leaf tensors to a
     torch.optim.Optimizer over them (default Adam at `learning_rate`).
@@ -289,7 +384,8 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
     the same summed gradient, and the ladder climbs on the drops summed
     over the ranks, so every rank takes the same steps.  The backend is
     resolved for the frame, not the shard, so every rank takes the same
-    backend."""
+    backend.  With views, a drop in any view re-runs the whole step at the
+    next rung."""
     backend = resolve_train_backend(backend, scene, cfg)
     mesh = Mesh(0, 1, scene.device) if mesh is None else mesh
     params = [t.detach().clone().requires_grad_(True)
@@ -307,6 +403,8 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
 
     rungs = wf_rungs(wf_opts)
     rung = 0
+    # The single-view step is called as it always was.
+    posed = {} if views is None else {"views": views}
 
     def attempt(o):
         if o is not rungs[rung]:  # a re-run: the step dropped and was discarded
@@ -314,7 +412,7 @@ def fit_scene(scene, cfg: RenderConfig, target_flat, steps: int = 100,
         loss, grads, info = loss_and_grad_sharded(
             snapshot(), cfg, target_flat, mesh=mesh, backend=backend,
             interleave=interleave, wf_opts=o, on_drop="ignore",
-            return_info=True)
+            return_info=True, **posed)
         return (loss, grads), info["dropped"]
 
     losses = []

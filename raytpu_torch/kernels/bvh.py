@@ -26,11 +26,11 @@ Each sphere's box is its cube of half-width r, grown by
 
     PAD_REL (r + E) + PAD_ABS + (sqrt(r^2 + PAD_SQ E^2) - r),
 
-E the scene's extent (the largest |coordinate| of a sphere's surface or a
-light), so that no sphere a float test accepts lies outside its box.  The
-tests' inputs (ray origins, hit points, centres, lights) lie in [-E, E]^3,
-so every distance D among them is at most 2 sqrt(3) E.  A test rounds in
-two ways:
+E the scene's extent (the largest |coordinate| of a sphere's surface, a
+light or a posed camera's eye), so that no sphere a float test accepts
+lies outside its box.  The tests' inputs (ray origins, hit points,
+centres, lights) lie in [-E, E]^3, so every distance D among them is at
+most 2 sqrt(3) E.  A test rounds in two ways:
 
   * linearly, where a point or a parameter moves by a few ulps of D (the
     o - centre differences, the box faces, the slab parameters, the
@@ -103,22 +103,28 @@ def sphere_pad(rad, extent):
             + quad / (torch.sqrt(rad * rad + quad) + rad))
 
 
-def sphere_boxes(spheres_tbl, lights_tbl):
-    """(lo, hi), each (3, N): every sphere's box, inflated by sphere_pad."""
+def sphere_boxes(spheres_tbl, lights_tbl, reach: float = 0.0):
+    """(lo, hi), each (3, N): every sphere's box, inflated by sphere_pad.
+    `reach`: the largest |coordinate| of a camera ray's origin (a posed
+    camera's eye), which the extent covers too; the reference camera's
+    origin, 0, needs none."""
     pos, rad = spheres_tbl[0:3], spheres_tbl[3].abs()
     extent = (pos.abs() + rad).amax()
     if lights_tbl.shape[1] > 0:
         extent = torch.maximum(extent, lights_tbl[0:3].abs().amax())
+    if reach > 0:
+        extent = torch.clamp(extent, min=float(reach))
     half = rad + sphere_pad(rad, extent)
     return pos - half, pos + half
 
 
 @scoped("wf.bvh")
-def build_bvh(spheres_tbl, lights_tbl) -> Bvh:
+def build_bvh(spheres_tbl, lights_tbl, reach: float = 0.0) -> Bvh:
     """The tree over the scene of scene_tables (spheres (12, N), lights
-    (6, L)), on the tables' device."""
+    (6, L)), on the tables' device; `reach` as in sphere_boxes, for rays
+    from posed cameras' eyes."""
     spheres_tbl, lights_tbl = spheres_tbl.detach(), lights_tbl.detach()
-    lo, hi = sphere_boxes(spheres_tbl, lights_tbl)
+    lo, hi = sphere_boxes(spheres_tbl, lights_tbl, reach)
     order = torch.argsort(morton_codes(spheres_tbl[0:3]), stable=True)
     return tree_over(lo, hi, order)
 

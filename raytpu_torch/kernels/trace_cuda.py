@@ -202,12 +202,14 @@ def _pixel_ids(cfg: RenderConfig, offset: int, count: int, stride: int,
 
 
 def render_pixels_torch(scene, cfg: RenderConfig, offset: int = 0,
-                        count: int | None = None, stride: int = 1):
+                        count: int | None = None, stride: int = 1, view=None):
     """The plain version: the eager tracer on the pixel set
-    {offset + j*stride : j < count} clamped to P-1 -> (count, 3)."""
+    {offset + j*stride : j < count} clamped to P-1 -> (count, 3), from
+    the posed camera `view` where given (trace.render_pixels)."""
     offset, count, stride = _pixel_set(cfg, offset, count, stride)
     return render_pixels(scene, cfg,
-                         _pixel_ids(cfg, offset, count, stride, scene.device))
+                         _pixel_ids(cfg, offset, count, stride, scene.device),
+                         view=view)
 
 
 def _check_depth(cfg: RenderConfig):

@@ -88,6 +88,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from raytpu_torch.camera import posed_directions
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels.bvh import Bvh, build_bvh, leaf_count
 from raytpu_torch.kernels.trace_cuda import (BG_ROWS, LIGHT_ROWS, SCENE_ROWS,
@@ -641,10 +642,12 @@ class CompactFn(torch.autograd.Function):
 # The orchestration.
 
 
-def camera_state(cfg: RenderConfig, gp, si, sj, live):
+def camera_state(cfg: RenderConfig, gp, si, sj, live, view=None):
     """The (10, R) state of camera rays: frame pixel `gp`, supersample
     (si, sj), unit intensity where `live` (else zero), the background
-    medium.  Rounds as trace.camera_rays and the kernels' camera_dir."""
+    medium.  Rounds as trace.camera_rays and the kernels' camera_dir.
+    With a `view` (camera.View) the rays leave its eye along R^T d, as
+    trace.camera_rays poses them."""
     c = camera_constants(cfg)
     ix = (gp % cfg.width).to(torch.float32)
     iy = (gp // cfg.width).to(torch.float32)
@@ -655,7 +658,12 @@ def camera_state(cfg: RenderConfig, gp, si, sj, live):
     d = normalize(torch.stack([x, y, torch.full_like(x, c.zoom)], dim=-1))
     zero = torch.zeros_like(x)
     one = live.to(torch.float32)
-    return torch.stack([zero, zero, zero, d[:, 0], d[:, 1], d[:, 2],
+    if view is None:
+        origin = (zero, zero, zero)
+    else:
+        origin = tuple(torch.full_like(x, float(e)) for e in view.eye)
+        d = posed_directions(view, d)
+    return torch.stack([*origin, d[:, 0], d[:, 1], d[:, 2],
                         one, one, one, zero - 1.0])
 
 
@@ -674,12 +682,12 @@ def wavefront_sizes(cfg: RenderConfig, chunk_rays: int, capacity_factor,
 
 def chunk_camera_state(cfg: RenderConfig, chunk: int, n_chunks: int, c: int,
                        npix: int, offset: int = 0, shard_stride: int = 1, *,
-                       device):
+                       device, view=None):
     """Chunk c's camera rays, pixel-major and strided: ray j is sample
     j % spp of slot k = j // spp, the window pixel c + k * n_chunks (frame
-    pixel offset + that * shard_stride, clamped to P-1).  Returns the
-    (10, chunk) state, zero intensity past the window, and the slot ids
-    (chunk,) int32."""
+    pixel offset + that * shard_stride, clamped to P-1), from the posed
+    camera `view` where given.  Returns the (10, chunk) state, zero
+    intensity past the window, and the slot ids (chunk,) int32."""
     spp = cfg.samples_per_pixel
     ray = torch.arange(chunk, dtype=torch.int64, device=device)
     k, sample = ray // spp, ray % spp
@@ -687,7 +695,7 @@ def chunk_camera_state(cfg: RenderConfig, chunk: int, n_chunks: int, c: int,
     gp = torch.clamp(offset + torch.clamp(gpid, max=npix - 1) * shard_stride,
                      max=cfg.num_pixels - 1)
     state = camera_state(cfg, gp, sample // cfg.alias_factor,
-                         sample % cfg.alias_factor, gpid < npix)
+                         sample % cfg.alias_factor, gpid < npix, view)
     return state, k.to(torch.int32)
 
 
@@ -717,7 +725,8 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
                             capacity_factor=2, eager_sort: bool = True,
                             return_info: bool = False, offset: int = 0,
                             count: int | None = None, streams: int = 1,
-                            shard_stride: int = 1):
+                            shard_stride: int = 1, view=None,
+                            bvh: Bvh | None = None, tables=None):
     """Wavefront render of the `count` frame pixels
     {offset + j*shard_stride : j < count}, clamped to P-1 -> (count, 3)
     linear colour (the full frame by default).
@@ -733,7 +742,16 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
     int64 tensor on the scene's device}, the live rays lost to capacity,
     summed over the frame on the device.
 
-    When grad is enabled and a scene leaf requires grad, the frame is
+    `view` (a camera.View) poses the camera in the world-space scene;
+    None is the reference camera at the origin.  `tables`, the scene's
+    scene_tables, and `bvh`, build_bvh's tree over them (whose reach
+    covers the view's eye), are the caller's where it has them already,
+    as a step that renders several views of one scene does: given a tree,
+    the frame builds none.  Tables that the caller made leaves of its own
+    take the frame's gradient in place of the scene's leaves.
+
+    When grad is enabled and a scene leaf (or a given table) requires
+    grad, the frame is
     differentiable: levels run as WfLevelFn (K3 forward, K4 backward) and
     compactions as CompactFn (K5, K6 backward).  A frame of more than one
     chunk then checkpoints each chunk but the last: the backward re-runs
@@ -743,8 +761,6 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
     (wf.recomputed).  A dropped ray takes no gradient: the caller enforces
     the counter, which counts the forward's drops once."""
     device = _cuda_device(scene, "render_pixels_wavefront")
-    ad = torch.is_grad_enabled() and any(t.requires_grad
-                                         for t in scene_leaves(scene))
     npix = cfg.num_pixels if count is None else int(count)
     if offset < 0 or shard_stride < 1 or npix < 1 or streams < 1:
         raise ValueError(f"need offset >= 0, shard_stride >= 1, count >= 1 and "
@@ -753,8 +769,13 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
                          f"streams={streams}")
     if device.type == "cuda":
         _check_scene(scene, device, bounded=False)
-    tables = scene_tables(scene)
-    bvh = build_bvh(tables[0], tables[1]) if device.type == "cuda" else None
+    if tables is None:
+        tables = scene_tables(scene)
+    ad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*scene_leaves(scene), *tables))
+    if bvh is None and device.type == "cuda":
+        reach = 0.0 if view is None else float(abs(view.eye).max())
+        bvh = build_bvh(tables[0], tables[1], reach)
     # Whether K3 runs its in-place instance, asked only while the profiler
     # records (wf.slots_inplace): with it off the count costs one flag read.
     k3_in_place = (device.type == "cuda" and profiling.recording()
@@ -781,7 +802,8 @@ def render_pixels_wavefront(scene, cfg: RenderConfig, chunk_rays: int = 1 << 18,
         counts its slots only)."""
         with _on(side[c % len(side)]):
             state, pid = chunk_camera_state(cfg, chunk, n_chunks, c, npix,
-                                            offset, shard_stride, device=device)
+                                            offset, shard_stride, device=device,
+                                            view=view)
             window = max(0, min(ws, -(-(npix - c) // n_chunks)))
             profiling.count("wf.live", spp * window)
             lost = torch.zeros((), dtype=torch.int64, device=device)

@@ -32,6 +32,7 @@ import warnings
 
 import torch
 
+from raytpu_torch.camera import scene_in_view
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.device import resolve_device
 from raytpu_torch.kernels.trace_cuda import (bwd_takes, dense_takes,
@@ -204,7 +205,7 @@ def climb_ladder(rungs: list, attempt, start: int = 0, on_drop: str = "warn"):
 
 def render_single(scene, cfg: RenderConfig, backend: str = "auto",
                   wf_opts: dict | None = None, return_info: bool = False,
-                  on_drop: str = "warn"):
+                  on_drop: str = "warn", view=None):
     """One-device full-frame render on the scene's device -> (H, W, 3), or
     (image, info) with `return_info`, info = {'dropped': int} and, for the
     wavefront, {'wf_opts': the options that rendered it}.
@@ -213,16 +214,19 @@ def render_single(scene, cfg: RenderConfig, backend: str = "auto",
     wavefront and are ignored by the other backends.  Without a
     capacity_factor the wavefront runs the auto ladder, re-rendering at
     the next capacity on any drop; drops left after it are reported per
-    `on_drop` ("warn", "raise" or "ignore").  render_sharded over a world
-    of one, whatever process group is initialised."""
+    `on_drop` ("warn", "raise" or "ignore").  `view` (a camera.View) poses
+    the camera in the world-space scene, as in render_sharded.
+    render_sharded over a world of one, whatever process group is
+    initialised."""
     return render_sharded(scene, cfg, Mesh(0, 1, scene.device), backend,
-                          wf_opts, return_info, on_drop)
+                          wf_opts, return_info, on_drop, view=view)
 
 
 @scoped("render.frame")
 def render_sharded(scene, cfg: RenderConfig, mesh=None, backend: str = "auto",
                    wf_opts: dict | None = None, return_info: bool = False,
-                   on_drop: str = "warn", interleave: bool | None = None):
+                   on_drop: str = "warn", interleave: bool | None = None,
+                   view=None):
     """Render the frame with its pixels split over the ranks of `mesh`
     (default: make_mesh on the scene's device) -> (H, W, 3) on every rank,
     on the scene's device; with `return_info`, (image, info) as
@@ -235,18 +239,24 @@ def render_sharded(scene, cfg: RenderConfig, mesh=None, backend: str = "auto",
     is cut off.  Pixels are independent, so the frame is the one-device
     frame.  The wavefront's ladder climbs on the drops summed over the
     ranks, read once a rung, so that every rank takes the same rung, and
-    drops left are reported per `on_drop` on every rank."""
+    drops left are reported per `on_drop` on every rank.
+
+    `view` (a camera.View) renders the world-space scene from that posed
+    camera: the kernel K1, whose camera rays are made in the kernel, takes
+    the scene moved into the view (camera.scene_in_view), the others the
+    posed rays; None is the reference camera."""
     mesh = make_mesh(scene.device) if mesh is None else mesh
     backend = resolve_backend(backend, scene, cfg)
     offset, count, stride = pixel_set(mesh, cfg, interleave)
     info = dict(dropped=0)
     if backend == "cuda":
-        rows = render_pixels_cuda(scene, cfg, offset, count, stride)
+        posed = scene if view is None else scene_in_view(scene, view)
+        rows = render_pixels_cuda(posed, cfg, offset, count, stride)
     elif backend == "wavefront":
         def attempt(o):
             rows, mine = render_pixels_wavefront(
                 scene, cfg, return_info=True, offset=offset, count=count,
-                shard_stride=stride, **o)
+                shard_stride=stride, view=view, **o)
             return rows, int(all_reduce_sum(mesh, mine["dropped"]))  # one read a rung
 
         rungs = wf_rungs(wf_opts)
@@ -255,7 +265,7 @@ def render_sharded(scene, cfg: RenderConfig, mesh=None, backend: str = "auto",
         # frames of the scene can pass them back and skip the ladder.
         info = dict(dropped=n, wf_opts=rungs[i])
     else:
-        rows = render_pixels_torch(scene, cfg, offset, count, stride)
+        rows = render_pixels_torch(scene, cfg, offset, count, stride, view=view)
     out = all_gather_rows(mesh, rows)
     if stride > 1:
         # Row s*count + j holds pixel s + j*size: the transpose puts pixel

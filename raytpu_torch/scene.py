@@ -296,15 +296,21 @@ def sphereflake_spheres(level: int = 4):
     return np.array(centres), np.array(radii), np.array(parents, dtype=np.int64)
 
 
-def spd_view():
-    """The SPD view as a rigid map p -> rotation @ (p - eye) into the
-    port's camera frame (eye at the origin, looking down -z, up +y):
-    (rotation (3, 3), eye (3,)), float64.  Its rows are the camera's right
-    (up x back), up (back x right) and back ((from - at) / |from - at|)."""
-    eye, at, up = (np.array(v, np.float64) for v in (SPD_FROM, SPD_AT, SPD_UP))
+def look_at(eye, at, up):
+    """The camera at `eye` looking at `at`, `up` upward, as a rigid map p
+    -> rotation @ (p - eye) into the port's camera frame (eye at the
+    origin, looking down -z, up +y): (rotation (3, 3), eye (3,)), float64.
+    Its rows are the camera's right (up x back), up (back x right) and
+    back ((eye - at) / |eye - at|)."""
+    eye, at, up = (np.array(v, np.float64) for v in (eye, at, up))
     back = _unit(eye - at)
     right = _unit(np.cross(up, back))
     return np.stack([right, np.cross(back, right), back]), eye
+
+
+def spd_view():
+    """The SPD view, look_at(SPD_FROM, SPD_AT, SPD_UP)."""
+    return look_at(SPD_FROM, SPD_AT, SPD_UP)
 
 
 def sphereflake_scene(level: int = 4, device=None) -> Scene:

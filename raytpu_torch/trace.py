@@ -12,6 +12,10 @@ position ((ix - W/2)*xstep, (H/2 - iy)*ystep) on a 16x12 image plane;
 supersample (i, j) adds (j*sub*aspect on x, i*sub on y) where
 sub = xstep/aliasFactor — the reference's positive-corner-biased pattern.
 The arithmetic is float32 throughout, as in raytpu.trace.
+
+A `view` (camera.View) poses the camera in a world-space scene: the rays
+leave its eye along R^T d (camera.posed_rays); without one (None) the
+camera is the reference's, at the origin.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from raytpu_torch.camera import posed_rays
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.ops.geometry import closest_hit, normalize
 from raytpu_torch.ops.shading import is_significant, matte_light_sum, reflect, refract
@@ -58,11 +63,12 @@ def camera_constants(cfg: RenderConfig) -> CameraConstants:
 
 
 def camera_rays(cfg: RenderConfig, sample_i: int, sample_j: int, gid=None,
-                device=None):
+                device=None, view=None):
     """Unit directions (len(gid), 3) of supersample (i, j) for the pixels
     `gid`, on gid's device; without `gid`, all H*W pixels on `device`,
     which defaults to this process's card (device.local_device) and
-    raises without one: pass device="cpu" for the CPU."""
+    raises without one: pass device="cpu" for the CPU.  With a `view`,
+    (origins, directions) of the posed rays (camera.posed_rays)."""
     if gid is None:
         gid = torch.arange(cfg.num_pixels, dtype=torch.int64,
                            device=resolve_device(device))
@@ -76,7 +82,8 @@ def camera_rays(cfg: RenderConfig, sample_i: int, sample_j: int, gid=None,
     x = (px + float(np.float32(sample_j) * np.float32(c.sub))) * c.aspect
     y = py + float(np.float32(sample_i) * np.float32(c.sub))
     z = torch.full_like(x, c.zoom)
-    return normalize(torch.stack([x, y, z], dim=-1))
+    d = normalize(torch.stack([x, y, z], dim=-1))
+    return d if view is None else posed_rays(view, d)
 
 
 def _gather_medium(spheres, bg, index):
@@ -189,34 +196,40 @@ def trace_rays(scene, origin, direction, intensity, max_depth: int,
     return total
 
 
-def _render_gid_chunk(scene, gid, cfg: RenderConfig, observe=None):
+def _render_gid_chunk(scene, gid, cfg: RenderConfig, observe=None, view=None):
     """Render one chunk of pixel ids: every supersample pattern through the
     full bounce tree, averaged with the 1/aliasFactor^2 weight
-    (raytrace_kernel.cl:945-968).  `observe` as in trace_rays."""
+    (raytrace_kernel.cl:945-968).  `observe` as in trace_rays; `view` as
+    in camera_rays."""
     acc = torch.zeros((gid.shape[0], 3), dtype=torch.float32, device=gid.device)
     origin = torch.zeros((1, 3), dtype=torch.float32, device=gid.device)
     weight = camera_constants(cfg).weight
     for i in range(cfg.alias_factor):
         for j in range(cfg.alias_factor):
-            d = camera_rays(cfg, i, j, gid)
+            if view is None:
+                d = camera_rays(cfg, i, j, gid)
+            else:
+                origin, d = camera_rays(cfg, i, j, gid, view=view)
             colour = trace_rays(scene, origin, d, torch.ones_like(d),
                                 cfg.max_depth, observe)
             acc = acc + weight * colour
     return acc
 
 
-def render_pixels(scene, cfg: RenderConfig, gid, observe=None):
+def render_pixels(scene, cfg: RenderConfig, gid, observe=None, view=None):
     """Render a flat block of pixel ids -> (B, 3) linear colour, in chunks
     of cfg.chunk_pixels so the 2^depth ray tree's memory stays bounded.
-    `observe` as in trace_rays, for every chunk and supersample."""
+    `observe` as in trace_rays, for every chunk and supersample; `view`
+    (a camera.View) poses the camera, None the reference's."""
     if gid.shape[0] == 0:
         return torch.zeros((0, 3), dtype=torch.float32, device=gid.device)
-    return torch.cat([_render_gid_chunk(scene, g, cfg, observe)
+    return torch.cat([_render_gid_chunk(scene, g, cfg, observe, view)
                       for g in torch.split(gid, cfg.chunk_pixels)])
 
 
-def render_image(scene, cfg: RenderConfig, observe=None):
+def render_image(scene, cfg: RenderConfig, observe=None, view=None):
     """Render the full frame on the scene's device: (H, W, 3) float32.
-    `observe` as in render_pixels."""
+    `observe` and `view` as in render_pixels."""
     gid = torch.arange(cfg.num_pixels, dtype=torch.int64, device=scene.device)
-    return render_pixels(scene, cfg, gid, observe).reshape(cfg.height, cfg.width, 3)
+    return render_pixels(scene, cfg, gid, observe, view).reshape(
+        cfg.height, cfg.width, 3)

@@ -1234,3 +1234,112 @@ def test_bench_and_its_timing_on_the_card(dev):
     _, stats = render_timed(default_scene(device=dev), cfg, make_mesh(dev), 1, 2)
     assert stats["backend"] == "cuda" and stats["ranks"] == 1
     assert stats["device"] == torch.cuda.get_device_name(dev)
+
+
+@pytest.mark.parametrize("n_spheres", [256, 3000])
+def test_posed_level_kernel_through_the_tree_matches_its_reference(dev, n_spheres):
+    """A posed camera's rays leave its eye: K3 through a tree whose reach
+    covers the eye (here past the scene's own extent), against its
+    brute-force reference instance bit for bit (emissions, children, sel)
+    over three levels; and the posed frame through the normal path against
+    the eager tracer's posed frame under the wavefront's contract."""
+    from raytpu_torch.camera import View, turntable
+
+    scene = random_scene(n_spheres, seed=3, device=dev)
+    cfg = RenderConfig(width=64, height=32, max_depth=2, alias_factor=2)
+    look = View.look_at((0.0, 0.0, 30.0), (0.0, 0.0, -26.0), (0.0, 1.0, 0.0))
+    view = turntable(look, 8, (0.0, 1.0, 0.0), (0.0, 0.0, -26.0))[3]
+    tables = trace_cuda.scene_tables(scene)
+    bvh = wavefront.build_bvh(*tables[:2], float(abs(view.eye).max()))
+    chunk, ws, cap, n = wavefront.wavefront_sizes(cfg, 4096, 2)
+    state, pid = wavefront.chunk_camera_state(cfg, chunk, n, 0, cfg.num_pixels,
+                                              device=dev, view=view)
+    assert torch.equal(state[0:3, 0].cpu(), torch.tensor(view.eye))
+    for level in range(3):
+        got = wavefront.wf_level(scene, state, True, tables, bvh, return_sel=True)
+        want = wavefront.wf_level_reference(scene, state, True, tables,
+                                            return_sel=True)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b)), level
+        assert (got[2][0] >= 0).any(), level
+        state, pid = wavefront.compact(got[1], pid, min(2 * state.shape[1], cap), ws)[:2]
+    img = render_single(scene, cfg, backend="wavefront", view=view)
+    assert_wavefront_contract(img, render_pixels_torch(scene, cfg, view=view))
+
+
+def test_posed_turntable_view_at_full_size_matches_the_views_reference(dev):
+    """balls4-turntable8-train's view 3 (the SPD flake, 512x512 3x3 depth
+    5) on four rows through the normal path (the wavefront, K3 in place)
+    against benchmark/reference/views.py's frame of those rows, under the
+    wavefront's contract; and view 0, the identity pose, gives
+    balls4-train's frame of those rows within index_add_'s atomics (1e-6
+    of the largest value: the card's frame varies in its last bits from
+    run to run)."""
+    from pathlib import Path
+
+    from benchmark import inputs
+    from benchmark.reference import tracer, views
+    from raytpu_torch.camera import View
+
+    root = Path(__file__).resolve().parent.parent
+    config = json.loads((root / "benchmark/configs/spd-balls4-512-d5.json").read_text())
+    traffic = json.loads((root / "benchmark/traffic/fit10-turntable8.json").read_text())
+    leaves = inputs.scene_leaves(config, 0, dev)
+    scene = scene_from_leaves([leaves[k] for k in tracer.LEAF_NAMES])
+    cfg = RenderConfig(**config["render"])
+    poses = views.traffic_views(traffic["views"], dev)
+    cams = [View(r.cpu().numpy(), e.cpu().numpy()) for r, e in poses]
+    first, count = 250 * cfg.width, 4 * cfg.width
+    rows = dict(offset=first, count=count, chunk_rays=1 << 22)
+    posed = wavefront.render_pixels_wavefront(scene, cfg, view=cams[3], **rows)
+    want = views.render(leaves, config["render"], poses[3], 4096, (first, count))
+    assert_wavefront_contract(posed, want)
+    plain = wavefront.render_pixels_wavefront(scene, cfg, **rows)
+    ident = wavefront.render_pixels_wavefront(scene, cfg, view=cams[0], **rows)
+    assert float((plain - ident).abs().max()) <= 1e-6 * float(plain.abs().max())
+
+
+def test_dense_pair_renders_and_trains_a_posed_view(dev):
+    """K1 and K2 make their camera rays in the kernel: a view reaches them
+    as the scene moved into it (scene_in_view).  On the upstream scene the
+    posed frame through K1 against the eager tracer's posed rays (the two
+    routes round the geometry apart: the forward contract), and a 2-view
+    step through K1 + K2 against autograd of the eager tracer over the
+    same moved scenes (the loss within 1e-5, every leaf within 2e-3 of its
+    largest, as the wavefront's step is held to the pair's)."""
+    from raytpu_torch.camera import View, scene_in_view, turntable
+    from raytpu_torch.grad import loss_and_grad_sharded
+
+    scene = default_scene(device=dev)
+    cfg = RenderConfig(width=64, height=48, max_depth=3, alias_factor=2)
+    look = View.look_at((0.0, 0.0, 0.0), (0.0, 0.0, -8.0), (0.0, 1.0, 0.0))
+    vs = turntable(look, 12, (0.0, 1.0, 0.0), (-3.0, 0.0, -8.0))[:2]
+    before = trace_cuda.TRACE_FWD.launches
+    img = render_single(scene, cfg, backend="cuda", view=vs[1])
+    assert trace_cuda.TRACE_FWD.launches == before + 1
+    contract(img.reshape(-1, 3), render_pixels_torch(scene, cfg, view=vs[1]))
+    # Half of each view's frame, except on the pixels where K1 and the eager
+    # tracer differ by over 1e-5 of the largest value, where each side's
+    # target is its own frame, so that those take no cotangent
+    # (masked_cotangent's rule; 1.14% of a turned view's pixels read so on
+    # an H100, against the 1% of the reference camera's frames).
+    tk, tt = [], []
+    for v in vs:
+        k = render_pixels_cuda(scene_in_view(scene, v), cfg)
+        p = render_pixels_torch(scene_in_view(scene, v), cfg)
+        bad = (k - p).abs().amax(dim=1) > 1e-5 * p.abs().max()
+        assert bad.float().mean() <= 0.02
+        tk.append(torch.where(bad[:, None], k, 0.5 * p))
+        tt.append(torch.where(bad[:, None], p, 0.5 * p))
+    lk, gk = loss_and_grad_sharded(scene, cfg, torch.stack(tk), backend="cuda",
+                                   views=vs)
+    leaves = [t.detach().requires_grad_(True) for t in scene_leaves(scene)]
+    world = scene_from_leaves(leaves)
+    lt = sum(torch.sum((render_pixels_torch(scene_in_view(world, v), cfg) - t) ** 2)
+             for v, t in zip(vs, tt)) / (3 * cfg.num_pixels * len(vs))
+    gt = torch.autograd.grad(lt, leaves)
+    np.testing.assert_allclose(float(lk), float(lt), rtol=1e-5)
+    for a, b in zip(scene_leaves(gk), gt):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert np.abs(a - b).max() <= 2e-3 * max(float(np.abs(b).max()), 1e-12)
